@@ -5,11 +5,16 @@ elasticity.c:684-765). Port of ceedpetscsolid_tpu/cli.py.
 Usage (the reference's smoke test, elasticity.c:36, in hyperFS form):
     python -m ceedpetscsolid_tpu_torch.cli -problem hyperFS -test -degree 3 \
         -nu 0.3 -E 1 -dm_plex_box_faces 3,3,3 -multigrid none -num_steps 1
+and with the p-multigrid preconditioner and its Chebyshev coarse solve:
+    python -m ceedpetscsolid_tpu_torch.cli -problem hyperFS -test -degree 2 \
+        -nu 0.3 -E 1 -dm_plex_box_faces 2,2,2 -multigrid logarithmic \
+        -coarse_pc_type chebyshev -num_steps 1
 
 Runs on CUDA when a GPU is present (float32), else on the CPU (float64).
-Options the port does not implement yet (-multigrid other than none,
--problem other than hyperFS, -mesh, -qextra > 0 on CUDA, -view_soln,
--view_final_soln) raise NotImplementedError; unknown options are reported.
+Options the port does not implement yet (-coarse_pc_type gamg/amg, the
+default coarse solve under -multigrid logarithmic/uniform; -problem other
+than hyperFS; -mesh; -view_soln, -view_final_soln) raise
+NotImplementedError; unknown options are reported.
 """
 
 from __future__ import annotations
@@ -56,6 +61,11 @@ def _floats(s):
 
 def _bool(s):
     return s.lower() in ("true", "1", "yes", "on")
+
+
+def _coarse_solve(pc_type: str) -> str:
+    """-coarse_pc_type: gamg is PETSc's name for the AMG coarse PC."""
+    return "amg" if pc_type == "gamg" else pc_type
 
 
 def build_config(opts: dict):
@@ -116,6 +126,11 @@ def build_config(opts: dict):
         ksp_rtol=get("outer_ksp_rtol", float, None),
         ksp_max_it=get("outer_ksp_max_it", int, 10_000),
         ksp_monitor=get("ksp_monitor", _bool, False),
+        # `outer_mg_*` configures the level smoothers (PCMGSetNumberSmooth(3),
+        # elasticity.c:589), `coarse_*` the coarse solve (elasticity.c:577-582)
+        smooth_its=get("outer_mg_smooth_its", int, 3),
+        coarse_solve=_coarse_solve(get("coarse_pc_type", str, "amg")),
+        coarse_cheb_its=get("coarse_ksp_max_it", int, 30),
     )
     # Newton (SNES) overrides
     cfg.newton.rtol = get("snes_rtol", float, cfg.newton.rtol)
@@ -159,7 +174,7 @@ def main(argv=None):
 
     prob = ElasticityProblem(cfg)
     if viewopts["snes_view"]:
-        _print_solver_view(cfg)
+        _print_solver_view(cfg, prob)
 
     def monitor(inc, load, res):
         if viewopts["snes_monitor"]:
@@ -187,8 +202,9 @@ def main(argv=None):
     return 0
 
 
-def _print_solver_view(cfg):
-    """-snes_view analog: echo the solver tree."""
+def _print_solver_view(cfg, prob):
+    """-snes_view analog: echo the solver tree (the PC/PCMG configuration
+    echo of elasticity.c:716-748)."""
     print("SNES Object: newton")
     print(f"  line search: {cfg.newton.linesearch}"
           + (" (1 secant step)" if cfg.newton.linesearch == "cp" else ""))
@@ -196,7 +212,17 @@ def _print_solver_view(cfg):
           f"max_it {cfg.newton.max_it}")
     print("  KSP Object: (outer_) cg, natural norm")
     print(f"    rtol {cfg.ksp_rtol:g} max_it {cfg.ksp_max_it}")
-    print("  PC Object: jacobi")
+    if cfg.multigrid == "none" or len(prob.level_degrees) == 1:
+        print("  PC Object: jacobi")
+        return
+    print(f"  PC Object: mg (p-multigrid, {cfg.multigrid} schedule, "
+          f"levels p = {prob.level_degrees})")
+    print(f"    smoother: chebyshev({cfg.smooth_its}) + jacobi, "
+          "eig bounds 0.1/1.1 * lambda_max (est per Jacobian)")
+    if cfg.nu_smoother:
+        print(f"    smoother physics: nu = {cfg.nu_smoother}")
+    print(f"    coarse: (coarse_) chebyshev({cfg.coarse_cheb_its}), "
+          "matrix-free p=1")
 
 
 def _print_summary(cfg, prob, info):
@@ -208,11 +234,12 @@ def _print_summary(cfg, prob, info):
     print(f"  Mesh:    {fes.num_elements} elements, degree {cfg.degree}, "
           f"{fes.num_nodes} nodes, {3 * fes.num_nodes} DoFs")
     print(f"  Physics: nu = {cfg.nu}, E = {cfg.E}")
+    print(f"  Multigrid levels: {prob.level_degrees}")
     print(f"  SNES iterations: {info.snes_iters}  (reason: {info.reason})")
     print(f"  KSP iterations:  {info.ksp_iters}")
     print(f"  Final rnorm:     {info.rnorm:.6e}")
     print(f"  Solve time:      {info.solve_time:.3f} s "
-          f"(Jacobi diagonal builds {info.pc_time:.3f} s)")
+          f"(preconditioner setup {info.pc_time:.3f} s)")
     print(f"  DoFs/sec in SNES: {info.mdofs_per_sec:.3f} M")
     energy = prob.strain_energy(info.u)
     print(f"  Strain energy:    {energy:.10e}")

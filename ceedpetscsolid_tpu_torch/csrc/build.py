@@ -1,11 +1,14 @@
-"""Build the port's CUDA sources with nvcc into a shared library.
+"""Build the port's CUDA sources with nvcc into one shared library.
 
 The kernels have a plain C interface and are loaded with ctypes
-(ops/fused_apply.py), so nvcc compiles them without PyTorch's headers, in
-seconds. The library goes to `build/kernels/` at the checkout root, named
-by a hash of its source and flags: a changed source builds anew, an
-unchanged one is reused. Building needs nvcc (PATH, $CUDA_HOME/bin or
-/usr/local/cuda/bin); without it `build()` raises.
+(ops/fused_apply.py, ops/gather_probe.py), so nvcc compiles them without
+PyTorch's headers. The fused apply's instances are split into one
+translation unit per P; every unit compiles in its own nvcc process, all
+started together, and one nvcc call links the objects. The library goes to
+`build/kernels/` at the checkout root, named by a hash of its sources and
+flags: a changed source builds anew, an unchanged one is reused. Building
+needs nvcc (PATH, $CUDA_HOME/bin or /usr/local/cuda/bin); without it
+`build()` raises.
 """
 
 from __future__ import annotations
@@ -16,11 +19,20 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..ops.fused_apply import MAX_Q
+
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
-SOURCES = ("fused_apply.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# (source, extra flags): one compile unit each; the fused apply's instance
+# limit comes from ops/fused_apply.MAX_Q, one unit per P = 2..MAX_Q
+_FUSED = (f"-DCPS_FUSED_MAX_Q={MAX_Q}",)
+UNITS = (("fused_apply.cu", _FUSED),
+         *(("fused_apply.cu", (*_FUSED, f"-DCPS_FUSED_P={p}"))
+           for p in range(2, MAX_Q + 1)),
+         ("gather_probe.cu", ()))
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -36,9 +48,24 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name, flags in UNITS:
+        h.update(" ".join((name, *flags)).encode())
+    for name in sorted({name for name, _ in UNITS}):
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"cps_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; raise on the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(logs)
 
 
 def build() -> tuple[Path, str]:
@@ -51,14 +78,18 @@ def build() -> tuple[Path, str]:
         return out, ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{i}.o" for i in range(len(UNITS))]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
+                         str(CSRC / name)]
+                        for (name, flags), o in zip(UNITS, objs)])
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, out)    # atomic: no concurrent build sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)        # atomic: no concurrent build sees half a file
-    return out, proc.stdout + proc.stderr
-
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return out, log

@@ -5,6 +5,10 @@
 //   residual  (K1, jacobian=False, stash_out=True): ve = B^T D(B G u), writes
 //             the stash gradu;
 //   Jacobian  (K2, jacobian=True, stash_in=True):  ve = B^T dD(B G v; gradu).
+// Instances: every 2 <= P <= Q <= 6, f32 and f64. P = Q is a level at its
+// own Gauss rule (the fine residual and J.v, native p-multigrid levels);
+// P < Q is a coarse level at the fine level's rule (level_quadrature
+// "fine", the reference's choice) or a -qextra run.
 // Per element: gather the 3 x P^3 nodal values through `conn` (orientation is
 // already resolved by the FE-space numbering, so the TPU kernel's class rows,
 // orientation masks and selection GEMMs have no counterpart), contract to the
@@ -394,43 +398,106 @@ void launch(const void* u, long long N, const void* conn, int nelem,
       T(lam), T(mu));
 }
 
-template <bool JAC, typename T>
-bool dispatch_pq(int P, int Q, const void* u, long long N, const void* conn,
-                 int nelem, const void* qdata, const void* B, const void* D,
-                 void* stash, void* ve, double lam, double mu,
-                 cudaStream_t s) {
-  if (P != Q) return false;
-  switch (P) {
-    case 2: launch<JAC, 2, 2, T>(u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s); return true;
-    case 3: launch<JAC, 3, 3, T>(u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s); return true;
-    case 4: launch<JAC, 4, 4, T>(u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s); return true;
-    case 5: launch<JAC, 5, 5, T>(u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s); return true;
-    default: return false;
+// Static shared memory of one block (sB, sD, ue, t1, t2, dvs above).
+template <int P, int Q, typename T>
+constexpr size_t shared_bytes() {
+  return sizeof(T) * (2 * Q * P + 3 * P * P * P + 2 * 3 * P * P * Q +
+                      3 * 3 * P * Q * Q + 9 * Q * Q * Q);
+}
+
+template <int P, int Q>
+void launch_pq(int jacobian, int is_double, const void* u, long long N,
+               const void* conn, int nelem, const void* qdata, const void* B,
+               const void* D, void* stash, void* ve, double lam, double mu,
+               cudaStream_t s) {
+  static_assert(shared_bytes<P, Q, double>() <= 48 * 1024,
+                "static shared memory above 48 KB per block");
+  if (is_double) {
+    if (jacobian) launch<true, P, Q, double>(u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s);
+    else launch<false, P, Q, double>(u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s);
+  } else {
+    if (jacobian) launch<true, P, Q, float>(u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s);
+    else launch<false, P, Q, float>(u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s);
   }
 }
 
+// Every 2 <= P <= Q <= FUSED_MAX_Q is instantiated. The limit is
+// ops/fused_apply.py's MAX_Q, passed by csrc/build.py as -DCPS_FUSED_MAX_Q;
+// at 6 the f64 blocks use 47.2 KB of static shared memory.
+#ifndef CPS_FUSED_MAX_Q
+#error "compile with -DCPS_FUSED_MAX_Q=<max Q> (csrc/build.py passes it)"
+#endif
+constexpr int FUSED_MAX_Q = CPS_FUSED_MAX_Q;
+
+// Q = Qc..FUSED_MAX_Q for a fixed P; false when Q has no instance.
+template <int P, int Qc = P>
+bool dispatch_q(int Q, int jacobian, int is_double, const void* u,
+                long long N, const void* conn, int nelem, const void* qdata,
+                const void* B, const void* D, void* stash, void* ve,
+                double lam, double mu, cudaStream_t s) {
+  if constexpr (Qc > FUSED_MAX_Q) {
+    return false;
+  } else {
+    if (Q == Qc) {
+      launch_pq<P, Qc>(jacobian, is_double, u, N, conn, nelem, qdata, B, D,
+                       stash, ve, lam, mu, s);
+      return true;
+    }
+    return dispatch_q<P, Qc + 1>(Q, jacobian, is_double, u, N, conn, nelem,
+                                 qdata, B, D, stash, ve, lam, mu, s);
+  }
+}
+
+// The instances are split into one translation unit per P (compiled with
+// -DCPS_FUSED_P=P for every 2 <= P <= FUSED_MAX_Q by csrc/build.py, in
+// parallel nvcc processes): unit P defines dispatch_p<P>. The unit without
+// CPS_FUSED_P sees only the declaration and holds the C entry point below.
+#define CPS_DISPATCH_PARAMS                                                 \
+  int Q, int jacobian, int is_double, const void *u, long long N,          \
+      const void *conn, int nelem, const void *qdata, const void *B,       \
+      const void *D, void *stash, void *ve, double lam, double mu,         \
+      cudaStream_t s
+#define CPS_DISPATCH_ARGS \
+  Q, jacobian, is_double, u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s
+
+template <int P>
+bool dispatch_p(CPS_DISPATCH_PARAMS);
+
+#ifdef CPS_FUSED_P
+template <int P>
+bool dispatch_p(CPS_DISPATCH_PARAMS) {
+  return dispatch_q<P>(CPS_DISPATCH_ARGS);
+}
+template bool dispatch_p<CPS_FUSED_P>(CPS_DISPATCH_PARAMS);
+#else
+// P = Pc..FUSED_MAX_Q; false when P has no instance.
+template <int Pc = 2>
+bool dispatch_any_p(int P, CPS_DISPATCH_PARAMS) {
+  if constexpr (Pc > FUSED_MAX_Q) {
+    return false;
+  } else {
+    if (P == Pc) return dispatch_p<Pc>(CPS_DISPATCH_ARGS);
+    return dispatch_any_p<Pc + 1>(P, CPS_DISPATCH_ARGS);
+  }
+}
+#endif
+
 }  // namespace cps
 
+#ifndef CPS_FUSED_P
 extern "C" {
 
 // Launches one fused apply on `stream`. Returns cudaGetLastError() after the
-// launch (0 on success), or -1 when (P, Q, dtype) has no instance.
+// launch (0 on success), or -1 when (P, Q) has no instance.
 int cps_fused_apply(int jacobian, int P, int Q, int is_double, const void* u,
                     long long N, const void* conn, int nelem,
                     const void* qdata, const void* B, const void* D,
                     void* stash, void* ve, double lam, double mu,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok;
-  if (is_double) {
-    ok = jacobian ? cps::dispatch_pq<true, double>(P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s)
-                  : cps::dispatch_pq<false, double>(P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s);
-  } else {
-    ok = jacobian ? cps::dispatch_pq<true, float>(P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s)
-                  : cps::dispatch_pq<false, float>(P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, lam, mu, s);
-  }
-  if (!ok) return -1;
+  if (!cps::dispatch_any_p(P, CPS_DISPATCH_ARGS)) return -1;
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"
+#endif

@@ -6,6 +6,9 @@ tensors, so both packages can compute from the same state.
                                               -> (9, nelem, Q3)
     u      (3, N)                             -> u
     Physics (anything with .nu and .E)        -> models.base.Physics
+    p-MG preconditioner data: per-level inverse diagonals (3, N_l) and
+    Chebyshev bounds (lo, hi)                 -> (tensors, float pairs)
+    level masks (3, N_l) bool                 -> bool tensors
 
 Nothing here imports JAX: callers convert with np.asarray first.
 """
@@ -61,3 +64,19 @@ def u_from_jax(u, dtype=torch.float64, device="cpu") -> torch.Tensor:
 
 def physics_from_jax(phys) -> Physics:
     return Physics(nu=float(phys.nu), E=float(phys.E))
+
+
+def pc_from_jax(diag_invs, bounds, dtype=torch.float64, device="cpu"):
+    """JAX `mg_setup` output (per-level inverse diagonals, per-level
+    (lam_min, lam_max)) -> the port's (list of (3, N_l) tensors, list of
+    float pairs), so a V-cycle runs on identical preconditioner data."""
+    return ([u_from_jax(d, dtype, device) for d in diag_invs],
+            [(float(lo), float(hi)) for lo, hi in bounds])
+
+
+def mask_from_jax(mask, device="cpu") -> torch.Tensor:
+    """(3, N_l) constrained-DOF mask of a level."""
+    a = np.asarray(mask)
+    if a.ndim != 2 or a.shape[0] != 3 or a.dtype != np.bool_:
+        raise ValueError(f"mask must be (3, N) bool, got {a.shape} {a.dtype}")
+    return _tensor(a, torch.bool, device)

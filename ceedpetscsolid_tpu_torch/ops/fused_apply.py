@@ -31,14 +31,20 @@ from ..models import hyper_fs
 from ..models.base import Mat3, Physics
 from .basis import Basis3D
 
-# (P, Q) instances compiled into the kernel library (degrees 1-4, qextra=0)
-INSTANTIATED_PQ = frozenset({(2, 2), (3, 3), (4, 4), (5, 5)})
+# (P, Q) instances compiled into the kernel library: every 2 <= P <= Q <= 6,
+# i.e. degrees 1-5 at their own Gauss rule and every coarser p-multigrid
+# level at a finer level's rule. The one place the limit is set:
+# csrc/build.py passes it to nvcc as -DCPS_FUSED_MAX_Q.
+MAX_Q = 6
+INSTANTIATED_PQ = frozenset((P, Q) for Q in range(2, MAX_Q + 1)
+                            for P in range(2, Q + 1))
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 class LaunchCounts:
-    """Kernel launches per mode, counted where the wrapper launches.
-    Launch bookkeeping only: nothing reads it to decide anything."""
+    """Kernel launches per mode, and per (mode, P, Q), counted where the
+    wrapper launches. Launch bookkeeping only: nothing reads it to decide
+    anything."""
 
     def __init__(self):
         self.reset()
@@ -46,6 +52,15 @@ class LaunchCounts:
     def reset(self):
         self.residual_launches = 0
         self.jacobian_launches = 0
+        self.by_pq = {}             # ("residual" | "jacobian", P, Q) -> n
+
+    def add(self, mode: str, basis: Basis3D):
+        if mode == "residual":
+            self.residual_launches += 1
+        else:
+            self.jacobian_launches += 1
+        key = (mode, basis.P, basis.Q)
+        self.by_pq[key] = self.by_pq.get(key, 0) + 1
 
 
 COUNTS = LaunchCounts()
@@ -100,8 +115,7 @@ def _check(u, conn, qdata, basis: Basis3D, stash):
     if (P, Q) not in INSTANTIATED_PQ:
         raise NotImplementedError(
             f"fused CUDA apply has no instance for P={P}, Q={Q} "
-            f"(instances: {sorted(INSTANTIATED_PQ)}; -qextra > 0 is not "
-            "ported to CUDA)")
+            f"(instances: every 2 <= P <= Q <= {MAX_Q})")
     if dt not in _DTYPES:
         raise TypeError(f"fused CUDA apply takes float32/float64, got {dt}")
     nelem = conn.shape[0]
@@ -158,7 +172,7 @@ def residual(u, conn, qdata, basis: Basis3D, phys: Physics):
     stash = torch.empty((9, nelem, basis.Q3), dtype=u.dtype, device=u.device)
     _check(u, conn, qdata, basis, stash)
     _launch(False, u, conn, qdata, basis, stash, ve, phys)
-    COUNTS.residual_launches += 1
+    COUNTS.add("residual", basis)
     return ve, stash
 
 
@@ -171,5 +185,5 @@ def jacobian(v, conn, qdata, stash, basis: Basis3D, phys: Physics):
     ve = torch.empty((3, conn.shape[0], basis.P3), dtype=v.dtype,
                      device=v.device)
     _launch(True, v, conn, qdata, basis, stash, ve, phys)
-    COUNTS.jacobian_launches += 1
+    COUNTS.add("jacobian", basis)
     return ve

@@ -8,10 +8,17 @@ Jacobian run the first four stages as one fused element apply
 (ops/fused_apply.py: the hand-written CUDA kernel on the GPU, plain torch on
 the CPU); the owner-sum is the deterministic Restriction.scatter_add.
 
+One factory serves every p-multigrid level (spaces coarse -> fine). Each
+level applies its physics either at the FINE level's Gauss points through a
+P_l -> Q_fine basis with the shared fine qdata and stash (the reference's
+choice, src/setuplibceed.c:756-757), or at its own Gauss rule
+Q_l = degree_l + 1 + qextra with its own qdata and the stash re-interpolated
+exactly onto that rule (`LevelOps.stash_interp`, the JAX package's
+native-quadrature levels).
+
 Box and unstructured meshes take the same conn path. The JAX package's
 TPU-layout machinery (class-row restrictions, lattice/spectral box paths,
-lane-padded qdata) has no counterpart here. Single level: p-multigrid
-levels are not ported yet.
+lane-padded qdata) has no counterpart here.
 
 Layouts: nodal fields (3, num_nodes); element fields (3, nelem, P3);
 quadrature tensors (3, 3, nelem, Q3); qdata (10, nelem, Q3); stash
@@ -20,6 +27,7 @@ quadrature tensors (3, 3, nelem, Q3); qdata (10, nelem, Q3); stash
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
@@ -28,37 +36,71 @@ import torch
 from ..mesh.fespace import FESpace
 from ..models.base import Mat3
 from . import fused_apply, geometry
-from .basis import Basis3D
+from .basis import Basis3D, _kron3, lagrange_matrices
+from .quadrature import gauss
 from .restriction import Restriction
 
 
-class OperatorFactory:
-    """Builds operator closures for one problem configuration (one level)."""
+@dataclass
+class LevelOps:
+    """Per-level operator data (ceedpetscsolid_tpu/ops/operator.py:73-103).
 
-    def __init__(self, space: FESpace, qextra: int = 0,
+    nat_basis and stash_interp are None on the fine level, which always
+    integrates at the fine rule."""
+
+    space: FESpace
+    restr: Restriction
+    basis: Basis3D                          # P_l -> Q_fine (Gauss)
+    nat_basis: Basis3D | None = None        # P_l -> Q_l (Gauss)
+    stash_interp: torch.Tensor | None = None  # (Q3_fine, Q3_l), exact
+
+
+class OperatorFactory:
+    """Builds operator closures for one problem configuration: one space,
+    or one per multigrid level (coarse -> fine)."""
+
+    def __init__(self, spaces: FESpace | list[FESpace], qextra: int = 0,
                  dtype=torch.float64, device="cpu"):
+        if isinstance(spaces, FESpace):
+            spaces = [spaces]
         self.dtype = dtype
         self.device = torch.device(device)
-        self.space = space
-        self.Q1d = space.degree + 1 + qextra             # setuplibceed.c:252
+        fine = spaces[-1]
+        self.Q1d = fine.degree + 1 + qextra              # setuplibceed.c:252
         self.Q3 = self.Q1d ** 3
-        self.nelem = space.conn.shape[0]
-        self.basis = Basis3D.create(space.degree + 1, self.Q1d, "gauss",
-                                    dtype, self.device)
-        self.restr = Restriction(space.conn, space.num_nodes,
-                                 node_ranges=space.entity_node_ranges(),
-                                 device=self.device)
-        mesh = space.mesh
+        self.nelem = fine.conn.shape[0]
+        self.levels: list[LevelOps] = []
+        for s in spaces:
+            lvl = LevelOps(
+                space=s,
+                restr=Restriction(s.conn, s.num_nodes,
+                                  node_ranges=s.entity_node_ranges(),
+                                  device=self.device),
+                basis=Basis3D.create(s.degree + 1, self.Q1d, "gauss", dtype,
+                                     self.device))
+            if s.degree != fine.degree:
+                Qn = s.degree + 1 + qextra
+                lvl.nat_basis = Basis3D.create(s.degree + 1, Qn, "gauss",
+                                               dtype, self.device)
+                B1, _ = lagrange_matrices(gauss(self.Q1d)[0], gauss(Qn)[0])
+                lvl.stash_interp = torch.as_tensor(
+                    np.ascontiguousarray(_kron3(B1, B1, B1).T), dtype=dtype,
+                    device=self.device)
+            self.levels.append(lvl)
+        self.fine = self.levels[-1]
+        # the fine level under its single-space names
+        self.space, self.restr, self.basis = fine, self.fine.restr, self.fine.basis
+        mesh = fine.mesh
         # coordinate (vertex) restriction: trilinear geometry basis 2 -> Q
         self.coord_restr = Restriction(mesh.connectivity, mesh.num_vertices,
                                        device=self.device)
         self.vertex_coords = torch.as_tensor(      # float64; cast per use
             np.ascontiguousarray(mesh.vertices.T), device=self.device)
 
-    def _coords_and_basis(self, dtype):
+    def _coords_and_basis(self, dtype, Q1d=None):
         """Element vertex coordinates (3, nelem, 8) and the trilinear
         coordinate basis (2 -> Q), in `dtype`."""
-        cb = Basis3D.create(2, self.Q1d, "gauss", dtype, self.device)
+        cb = Basis3D.create(2, Q1d or self.Q1d, "gauss", dtype, self.device)
         return self.coord_restr.gather(self.vertex_coords.to(dtype)), cb
 
     # ------------------------------------------------------------------
@@ -68,6 +110,22 @@ class OperatorFactory:
         xe, cb = self._coords_and_basis(dtype or self.dtype)
         dxdX = cb.apply_grad(xe)                               # (3,3,e,Q3)
         return geometry.setup_geo(dxdX, cb.qweights).contiguous()
+
+    def compute_qdata_native(self, level: int) -> torch.Tensor:
+        """(10, nelem, Q3_level) geometric factors at the level's own Gauss
+        rule (native-quadrature preconditioner levels)."""
+        xe, cb = self._coords_and_basis(self.dtype,
+                                        self.levels[level].nat_basis.Q)
+        return geometry.setup_geo(cb.apply_grad(xe), cb.qweights).contiguous()
+
+    def stash_to_native(self, stash: torch.Tensor, level: int) -> torch.Tensor:
+        """Fine-quadrature stash (9, nelem, Q3f) -> (9, nelem, Q3_level) by
+        the exact fine-Gauss -> level-Gauss interpolation (gradu components
+        are per-direction polynomials of degree <= p, fixed by their p+1
+        Gauss values): one matmul."""
+        M = self.levels[level].stash_interp
+        return (stash.reshape(-1, M.shape[0]) @ M).reshape(
+            9, self.nelem, M.shape[1])
 
     def quad_coords(self) -> torch.Tensor:
         """(3, nelem, Q3) physical coordinates of quadrature points."""
@@ -85,15 +143,25 @@ class OperatorFactory:
 
         return apply
 
-    def make_jacobian_structured(self, phys) -> Callable:
-        """hyperFS: v (3, nnodes), qdata, stash -> J@v L-vector."""
-        restr, basis = self.restr, self.basis
-
+    def _jacobian_apply(self, phys, restr: Restriction,
+                        basis: Basis3D) -> Callable:
         def apply(v, qdata, stash):
             ve = fused_apply.jacobian(v, restr.conn, qdata, stash, basis, phys)
             return restr.scatter_add(ve)
 
         return apply
+
+    def make_jacobian_structured(self, phys, level: int = -1) -> Callable:
+        """hyperFS: v (3, nnodes_l), fine qdata, fine stash -> J_l@v at the
+        fine quadrature (P_l -> Q_fine)."""
+        lvl = self.levels[level]
+        return self._jacobian_apply(phys, lvl.restr, lvl.basis)
+
+    def make_jacobian_native(self, phys, level: int) -> Callable:
+        """hyperFS: v (3, nnodes_l), qdata_nat, stash_nat -> J_l@v with the
+        level integrated at its own quadrature (see LevelOps)."""
+        lvl = self.levels[level]
+        return self._jacobian_apply(phys, lvl.restr, lvl.nat_basis)
 
     def make_energy(self, energy_qf: Callable, phys) -> Callable:
         """u -> total strain energy (0-dim float64 tensor).
@@ -117,14 +185,48 @@ class OperatorFactory:
 
         return apply
 
-    def make_diagonal(self, jacobian_qf: Callable, phys) -> Callable:
-        """Assembled operator diagonal (CeedOperatorLinearAssembleDiagonal
-        analog, src/matops.c:206-244):
+    # ------------------------------------------------------------------
+    def make_prolongation(self, coarse_level: int, fine_level: int):
+        """(prolong, restrict) between two levels.
+
+        Prolongation: gather coarse -> Gauss-Lobatto interp P_c -> P_f ->
+        scatter-add to fine -> multiply by 1/multiplicity (reference
+        src/matops.c:115-157, basis at src/setuplibceed.c:798-803).
+        Restriction is its exact transpose (src/matops.c:160-203)."""
+        c, f = self.levels[coarse_level], self.levels[fine_level]
+        c2f = Basis3D.create(c.space.degree + 1, f.space.degree + 1,
+                             "gauss_lobatto", self.dtype, self.device)
+        rc, rf = c.restr, f.restr
+        inv_mult = self.fine_inv_multiplicity(fine_level)
+
+        def prolong(uc):
+            return rf.scatter_add(c2f.apply_interp(rc.gather(uc))) * inv_mult
+
+        def restrict(uf):
+            return rc.scatter_add(c2f.apply_interp_T(rf.gather(uf * inv_mult)))
+
+        return prolong, restrict
+
+    def fine_inv_multiplicity(self, fine_level: int = -1) -> torch.Tensor:
+        """(1, nnodes_l) reciprocal element-sharing count of a level."""
+        r = self.levels[fine_level].restr
+        return 1.0 / r.scatter_add(torch.ones((1, r.nelem, r.P3),
+                                              dtype=self.dtype,
+                                              device=self.device))
+
+    # ------------------------------------------------------------------
+    def make_diagonal(self, jacobian_qf: Callable, phys, level: int = -1,
+                      native: bool = False) -> Callable:
+        """Assembled operator diagonal at `level` (CeedOperatorLinear-
+        AssembleDiagonal analog, src/matops.c:206-244):
         diag[c,e,p] = sum_q sum_{d1,d2} Bg[d1,q,p] K[c,d1,c,d2] Bg[d2,q,p]
         where K is the pointwise Jacobian tensor; K's (c, :, c, :) slices
         come from 9 unit-gradient applications of the qfunction.
+        native=True builds it at the level's own quadrature (qdata and stash
+        arguments must then be the native ones).
         """
-        basis, restr = self.basis, self.restr
+        lvl = self.levels[level]
+        basis, restr = (lvl.nat_basis if native else lvl.basis), lvl.restr
         # BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]
         BB = torch.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
 

@@ -1,14 +1,18 @@
 """Problem orchestration: the framework's `main` (reference elasticity.c:45-924).
-Port of ceedpetscsolid_tpu/problem.py for `multigrid="none"`.
+Port of ceedpetscsolid_tpu/problem.py for the hyperFS model on box meshes.
 
-Wires box mesh -> FE space -> operators -> BCs -> forcing -> Newton with
-Jacobi-preconditioned CG, and exposes solve / postprocessing entry points.
-Every residual and every CG matvec goes through the fused element apply
-(ops/fused_apply.py), which on a CUDA device is the hand-written kernel.
+Wires box mesh -> FE spaces (one per p-multigrid level) -> operators ->
+BCs -> forcing -> Newton with CG preconditioned by Jacobi
+(`multigrid="none"`) or by the p-multigrid V-cycle with Chebyshev-Jacobi
+smoothers and a Chebyshev coarse solve, and exposes solve /
+postprocessing entry points. Every residual, every CG matvec and every
+level J.v goes through the fused element apply (ops/fused_apply.py), which
+on a CUDA device is the hand-written kernel.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Sequence
@@ -21,9 +25,11 @@ from .mesh.fespace import FESpace, build_fespace
 from .models import Physics, get_model, mms
 from .models.boundary import BoundaryConditions
 from .models.forcing import assemble_forcing
+from .ops.fused_apply import MAX_Q
 from .ops.operator import OperatorFactory
-from .solve.cg import pcg
+from .solve.cg import estimate_extreme_eigs, pcg
 from .solve.newton import NewtonOptions, NewtonResult, newton_solve
+from .solve.pmg import MGLevel, make_vcycle
 from .utils.timing import StageLog, sync
 
 # failed-increment retries with a halved load delta (the reference breaks
@@ -54,7 +60,9 @@ class Config:
     """CLI-equivalent options (reference src/cloptions.c:26-285).
 
     Options the port does not implement yet raise NotImplementedError
-    naming the option; none is silently ignored."""
+    naming the option; none is silently ignored. The JAX package's
+    `pc_precision` (bf16 MXU passes inside the V-cycle) has no counterpart:
+    float32 contractions here run in IEEE f32 with TF32 off."""
 
     problem: str = "linElas"
     degree: int = 3
@@ -71,9 +79,15 @@ class Config:
     bc_clamp_translate: dict = field(default_factory=dict)   # face -> (tx,ty,tz)
     bc_clamp_rotate: dict = field(default_factory=dict)      # face -> (kx,ky,kz,theta/pi)
     num_increments: int | None = None           # default 1 (linear) else 10
-    multigrid: str = "logarithmic"              # only "none" is ported
+    multigrid: str = "logarithmic"              # logarithmic | uniform | none
     nu_smoother: float = 0.0
     test_mode: bool = False
+    # Preconditioner-level quadrature: "native" integrates each coarse
+    # p-MG level at its own Gauss rule Q_l = degree_l + 1 + qextra, with the
+    # stashed gradu re-interpolated exactly onto it; "fine" shares the fine
+    # level's quadrature, qdata and stash like the reference
+    # (src/setuplibceed.c:756-757). The fine operator is the same either way.
+    level_quadrature: str = "native"
     # units (cloptions.c:237-282)
     units_meter: float = 1.0
     units_second: float = 1.0
@@ -82,6 +96,13 @@ class Config:
     ksp_rtol: float = 1e-10
     ksp_max_it: int = 10_000
     ksp_monitor: bool = False                   # -ksp_monitor
+    smooth_its: int = 3                         # PCMGSetNumberSmooth(3)
+    coarse_solve: str = "amg"                   # amg (not ported) | chebyshev
+    coarse_cheb_its: int = 30                   # Chebyshev coarse solve
+    # rebuild the level diagonals and Chebyshev bounds every pc_lag Newton
+    # iterations (1 = the reference's per-Jacobian cadence,
+    # misc.c:151-183); CG always applies the fresh Jacobian
+    pc_lag: int = 1
     newton: NewtonOptions = field(default_factory=NewtonOptions)
     # None: CUDA when available, else the CPU; dtype None: per default_dtype
     device: torch.device | str | None = None
@@ -97,10 +118,18 @@ class Config:
                 "Cannot use constant forcing and finite strain formulation"
             )  # cloptions.c:89-93
         get_model(self.problem)                 # unported models raise
-        if self.multigrid != "none":
+        self.level_degrees()                    # unknown schedules raise
+        if self.level_quadrature not in ("native", "fine"):
+            raise ValueError(
+                f"unknown level_quadrature {self.level_quadrature!r}")
+        if self.coarse_solve not in ("amg", "chebyshev"):
+            raise ValueError(f"unknown coarse solve {self.coarse_solve!r}")
+        if self.multigrid != "none" and self.coarse_solve == "amg":
             raise NotImplementedError(
-                f"-multigrid {self.multigrid}: p-multigrid and AMG are not "
-                "ported to ceedpetscsolid_tpu_torch yet; use -multigrid none")
+                f"-coarse_pc_type {self.coarse_solve}: the AMG coarse solve "
+                "is not ported to ceedpetscsolid_tpu_torch yet; use "
+                "-coarse_pc_type chebyshev (matrix-free p = 1 Chebyshev) or "
+                "-multigrid none")
         if self.mesh_file:
             raise NotImplementedError(
                 f"-mesh {self.mesh_file}: Exodus-II meshes are not ported to "
@@ -108,18 +137,33 @@ class Config:
         self.device = select_device(self.device)
         if self.dtype is None:
             self.dtype = default_dtype(self.device)
-        if self.qextra > 0 and self.device.type == "cuda":
+        q1d = self.degree + 1 + self.qextra
+        if q1d > MAX_Q and self.device.type == "cuda":
             raise NotImplementedError(
-                f"-qextra {self.qextra}: the CUDA fused apply is instantiated "
-                "for Q = P only (qextra = 0)")
+                f"-qextra {self.qextra} at -degree {self.degree}: the CUDA "
+                f"fused apply is instantiated for Q <= {MAX_Q} quadrature "
+                f"points per direction, not Q = {q1d}")
 
     @property
     def pascal(self) -> float:
         return self.units_kilogram / (self.units_meter * self.units_second**2)
 
+    def level_degrees(self) -> list[int]:
+        """Multigrid level schedule (cloptions.c:196-225), coarse -> fine."""
+        p = self.degree
+        if self.multigrid == "logarithmic":
+            n = int(math.ceil(math.log2(p))) + 1 if p > 1 else 1
+            degs = [2**i for i in range(max(n - 1, 0))] + ([p] if n > 1 else [])
+            return degs if degs else [p]
+        if self.multigrid == "uniform":
+            return list(range(1, p + 1))
+        if self.multigrid == "none":
+            return [p]
+        raise ValueError(f"unknown multigrid type {self.multigrid!r}")
+
 
 class ElasticityProblem:
-    """Owns mesh, space, operators, BCs, forcing, and the solve loop."""
+    """Owns mesh, spaces, operators, BCs, forcing, and the solve loop."""
 
     def __init__(self, config: Config, mesh=None):
         self.config = config
@@ -134,17 +178,21 @@ class ElasticityProblem:
                 mesh = box_mesh(config.box_faces, config.box_lower,
                                 config.box_upper)
             self.mesh = mesh
-            self.fine_space: FESpace = build_fespace(mesh, config.degree)
+            # FE spaces per level (coarse -> fine)
+            self.level_degrees = config.level_degrees()
+            self.spaces: list[FESpace] = [build_fespace(mesh, d)
+                                          for d in self.level_degrees]
+            self.fine_space = self.spaces[-1]
 
         # --- operators ("Operator Setup", elasticity.c:230-233) ----------
         with self.log.stage("Operator Setup"):
             fes = self.fine_space
-            self.factory = OperatorFactory(fes, qextra=config.qextra,
+            self.factory = OperatorFactory(self.spaces, qextra=config.qextra,
                                            dtype=self.dtype, device=self.device)
             self.qdata = self.factory.compute_qdata()
             self.model = get_model(config.problem)
             self.phys = Physics(nu=config.nu, E=config.E * config.pascal)
-            # smoother physics for the diagonal (-nu_smoother, matops.c:215-232)
+            # smoother physics for the diagonals (-nu_smoother, matops.c:215-232)
             diag_phys = (Physics(nu=config.nu_smoother,
                                  E=config.E * config.pascal)
                          if config.nu_smoother else self.phys)
@@ -176,14 +224,34 @@ class ElasticityProblem:
                                  phys=self.phys, forcing_vec=config.forcing_vec)
             self.F = torch.where(self.bc_mask, 0.0, F)
 
+            nlev = len(self.spaces)
             self._res = self.factory.make_residual_structured(self.phys)
-            self._jac = self.factory.make_jacobian_structured(self.phys)
+            self._jac_lvls = [self.factory.make_jacobian_structured(
+                self.phys, level=l) for l in range(nlev)]
+            self._jac = self._jac_lvls[-1]
             self._energy_fn = self.factory.make_energy(self.model.energy_qf,
                                                        self.phys)
-            self._diag_fn = self.factory.make_diagonal(self.model.jacobian_qf,
-                                                       diag_phys)
+            # native-quadrature preconditioner levels (all but the fine one)
+            self._use_native_levels = (config.level_quadrature == "native"
+                                       and nlev > 1)
+            nat = range(nlev - 1) if self._use_native_levels else ()
+            self._jac_nat = [self.factory.make_jacobian_native(self.phys, l)
+                             for l in nat]
+            self._qdata_nat = [self.factory.compute_qdata_native(l)
+                               for l in nat]
+            self._diag_fns = [
+                self.factory.make_diagonal(self.model.jacobian_qf, diag_phys,
+                                           level=l, native=self._nat_level(l))
+                for l in range(nlev)]
+            self._use_mg = config.multigrid != "none" and nlev > 1
+            if self._use_mg:
+                self._level_masks = [self._level_mask(s) for s in self.spaces]
+                self._transfers = [None] + [
+                    self.factory.make_prolongation(l - 1, l)
+                    for l in range(1, nlev)]
         self.setup_time = time.perf_counter() - t0
         self._pc_time = 0.0
+        self._pc_cache = None
 
     # ------------------------------------------------------------------
     def bc_values(self, load_increment: float) -> torch.Tensor:
@@ -194,6 +262,22 @@ class ElasticityProblem:
     def insert_bc(self, u: torch.Tensor, bc_vals: torch.Tensor) -> torch.Tensor:
         """DMPlexInsertBoundaryValues analog (matops.c:70-73)."""
         return torch.where(self.bc_mask, bc_vals, u)
+
+    def _level_mask(self, space: FESpace) -> torch.Tensor:
+        """Constrained-DOF mask (3, nnodes_l) of a level's space (the same
+        BC face sets)."""
+        cfg = self.config
+        bcs = BoundaryConditions(num_nodes=space.num_nodes)
+        if cfg.test_mode or cfg.forcing == "mms":
+            bcs.add_mms(space.all_boundary_nodes())
+        else:
+            for face in cfg.bc_clamp:
+                bcs.add_clamp(space.face_set_nodes(face), np.zeros(7))
+        return torch.as_tensor(np.ascontiguousarray(bcs.mask().T),
+                               device=self.device)
+
+    def _nat_level(self, l: int) -> bool:
+        return self._use_native_levels and l < len(self.spaces) - 1
 
     def _nonlinear_residual(self, u, bc_vals, F):
         """G(u) = R(u with BCs inserted) - F, zeroed at constrained DOFs
@@ -206,22 +290,90 @@ class ElasticityProblem:
         jv = self._jac(torch.where(self.bc_mask, 0.0, v), self.qdata, stash)
         return torch.where(self.bc_mask, 0.0, jv)
 
+    # ------------------------------------------------------------------
+    # p-multigrid (elasticity.c:524-590)
+    # ------------------------------------------------------------------
+    def build_mg_levels(self, stash) -> tuple[list[MGLevel], list]:
+        """The V-cycle's levels for one Jacobian, and the native-level
+        stashes, interpolated here once per Jacobian (not per apply)."""
+        nlev = len(self.spaces)
+        stash_nats = [self.factory.stash_to_native(stash, l)
+                      if self._nat_level(l) else None for l in range(nlev)]
+        levels = []
+        for l in range(nlev):
+            lm = self._level_masks[l]
+            if self._nat_level(l):
+                def apply(v, stash_, jac=self._jac_nat[l], lm=lm,
+                          qd=self._qdata_nat[l], sn=stash_nats[l]):
+                    return torch.where(lm, 0.0,
+                                       jac(torch.where(lm, 0.0, v), qd, sn))
+            else:
+                def apply(v, stash_, jac=self._jac_lvls[l], lm=lm):
+                    return torch.where(lm, 0.0, jac(torch.where(lm, 0.0, v),
+                                                    self.qdata, stash_))
+            pro, res = self._transfers[l] or (None, None)
+            levels.append(MGLevel(apply=apply, mask=lm, prolong=pro,
+                                  restrict=res))
+        return levels, stash_nats
+
+    def level_diag(self, l: int, stash, stash_nats) -> torch.Tensor:
+        """Assembled diagonal of level l's operator (unmasked)."""
+        if self._nat_level(l):
+            return self._diag_fns[l](self._qdata_nat[l], stash_nats[l])
+        return self._diag_fns[l](self.qdata, stash)
+
+    def mg_setup(self, stash, levels, stash_nats):
+        """Per-level inverse diagonals + Chebyshev bounds: the
+        KSPChebyshevEstEig analog (elasticity.c:539-545), run once per
+        Jacobian refresh, never inside CG."""
+        diag_invs, bounds = [], []
+        for l, lvl in enumerate(levels):
+            d = torch.where(lvl.mask, 1.0, self.level_diag(l, stash, stash_nats))
+            dinv = 1.0 / d
+            diag_invs.append(dinv)
+            bounds.append(estimate_extreme_eigs(
+                lambda v, lvl=lvl: lvl.apply(v, stash), dinv, d.shape,
+                d.dtype))
+        return diag_invs, bounds
+
+    def linear_solve_mg(self, G, stash, levels, pc, rtol):
+        """p-MG-preconditioned CG for J d = -G; pc = (diag_invs, bounds)."""
+        cfg = self.config
+        diag_invs, bounds = pc
+        vcycle = make_vcycle(levels, smooth_its=cfg.smooth_its,
+                             coarse_cheb_its=cfg.coarse_cheb_its)
+        res = pcg(lambda v: levels[-1].apply(v, stash), -G,
+                  M_inv=lambda r: vcycle(r, stash, diag_invs, bounds),
+                  rtol=rtol, maxiter=cfg.ksp_max_it, monitor=cfg.ksp_monitor)
+        return res.x, res.iters
+
+    # ------------------------------------------------------------------
     def _jacobi_setup(self, stash) -> torch.Tensor:
-        """Inverse operator diagonal (1 at constrained DOFs), refreshed per
-        Jacobian like the reference's per-FormJacobian PC setup."""
-        d = torch.where(self.bc_mask, 1.0, self._diag_fn(self.qdata, stash))
+        """Inverse operator diagonal (1 at constrained DOFs)."""
+        fine = len(self.spaces) - 1
+        d = torch.where(self.bc_mask, 1.0, self.level_diag(fine, stash, None))
         return 1.0 / d
 
-    def _linear_solve(self, G, stash, rtol=None):
-        """Jacobi CG (elasticity.c:515-518) for J d = -G."""
+    def _linear_solve(self, G, stash, refresh=True, rtol=None):
+        """J d = -G by Jacobi CG (elasticity.c:515-518) or p-MG CG. The
+        preconditioner data is rebuilt once per Jacobian, or reused when
+        refresh is False (the pc_lag cadence)."""
         cfg = self.config
+        rtol = cfg.ksp_rtol if rtol is None else rtol
         t0 = time.perf_counter()
-        diag_inv = self._jacobi_setup(stash)
+        levels = stash_nats = None
+        if self._use_mg:
+            levels, stash_nats = self.build_mg_levels(stash)
+        if refresh or self._pc_cache is None:
+            self._pc_cache = (self.mg_setup(stash, levels, stash_nats)
+                              if self._use_mg else self._jacobi_setup(stash))
         sync(self.device)
         self._pc_time += time.perf_counter() - t0
+        if self._use_mg:
+            return self.linear_solve_mg(G, stash, levels, self._pc_cache, rtol)
+        diag_inv = self._pc_cache
         res = pcg(lambda v: self._jacobian_action(v, stash), -G,
-                  M_inv=lambda r: diag_inv * r,
-                  rtol=cfg.ksp_rtol if rtol is None else rtol,
+                  M_inv=lambda r: diag_inv * r, rtol=rtol,
                   maxiter=cfg.ksp_max_it, monitor=cfg.ksp_monitor)
         return res.x, res.iters
 
@@ -238,6 +390,7 @@ class ElasticityProblem:
         total_snes = total_ksp = 0
         rnorm = 0.0
         self._pc_time = 0.0
+        self._pc_cache = None
         t0 = time.perf_counter()
         last = None
         load_done = 0.0
@@ -246,14 +399,17 @@ class ElasticityProblem:
         def run_newton(load, u0):
             bc_vals = self.bc_values(load)
             F = self.F * load
+            nstep = [0]
 
             def residual(uu):
                 return self._nonlinear_residual(uu, bc_vals, F)
 
             def linear_solve(uu, G, stash, eta=None):
+                refresh = nstep[0] % max(cfg.pc_lag, 1) == 0
+                nstep[0] += 1
                 # Eisenstat-Walker forcing: never tighter than ksp_rtol
                 rtol = None if eta is None else max(cfg.ksp_rtol, eta)
-                return self._linear_solve(G, stash, rtol=rtol)
+                return self._linear_solve(G, stash, refresh=refresh, rtol=rtol)
 
             return newton_solve(residual, linear_solve, u0, cfg.newton,
                                 floor_atol=floor_atol)
@@ -329,7 +485,9 @@ class SolveInfo:
     reason: str
     solve_time: float
     dofs: int
-    pc_time: float = 0.0        # Jacobi diagonal builds, inside solve_time
+    # preconditioner setups (diagonals, Chebyshev bounds, native stashes),
+    # inside solve_time
+    pc_time: float = 0.0
 
     @property
     def mdofs_per_sec(self) -> float:

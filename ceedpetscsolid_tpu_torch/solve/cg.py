@@ -1,5 +1,6 @@
-"""Matrix-free preconditioned conjugate gradients.
-Port of `pcg` from ceedpetscsolid_tpu/solve/cg.py.
+"""Matrix-free preconditioned conjugate gradients, the Chebyshev-Jacobi
+smoother and its eigenvalue-bound estimate.
+Port of ceedpetscsolid_tpu/solve/cg.py.
 
 The KSPCG analog with KSP_NORM_NATURAL and rtol 1e-10 defaults (reference
 elasticity.c:504-507): convergence is monitored in the natural norm
@@ -13,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils.precise import dot2
@@ -90,3 +92,103 @@ def pcg(
     # iteration), so a first-iteration bail returns x = 0 there; the port
     # keeps that behaviour for parity.
     return CGResult(x=x, iters=it, rnorm=rn, converged=ok and rn <= tol)
+
+
+def chebyshev(
+    A: Callable,
+    b: torch.Tensor,
+    diag_inv: torch.Tensor,
+    lam_min: float,
+    lam_max: float,
+    iters: int,
+    x0: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fixed-iteration Chebyshev smoothing for D^{-1}A on [lam_min, lam_max].
+
+    The KSPCHEBYSHEV smoother analog (reference elasticity.c:538-552) with
+    Jacobi (diagonal) preconditioning. A fixed polynomial in A, so it is a
+    linear operation in b, safe inside an outer CG preconditioner.
+    Standard three-term recurrence (Saad, Iterative Methods, alg. 12.1).
+    The bounds are host floats: no device sync inside the recurrence.
+    """
+    x = torch.zeros_like(b) if x0 is None else x0
+    theta = 0.5 * (lam_max + lam_min)
+    delta = 0.5 * (lam_max - lam_min)
+    sigma1 = theta / delta
+    rho = 1.0 / sigma1
+
+    r = b - A(x)
+    d = (diag_inv * r) / theta
+    x = x + d
+    for _ in range(iters - 1):
+        r = b - A(x)
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        d = rho_new * rho * d + (2.0 * rho_new / delta) * (diag_inv * r)
+        rho = rho_new
+        x = x + d
+    return x
+
+
+def eig_start_vector(shape, dtype, device) -> torch.Tensor:
+    """The 'noisy' right-hand side of estimate_extreme_eigs: uniform on
+    [-0.5, 0.5) from numpy's default_rng(0). The JAX version draws it from
+    jax.random.PRNGKey(0), whose bits torch cannot reproduce; a test hands
+    this function JAX's numbers instead."""
+    rng = np.random.default_rng(0)
+    return torch.as_tensor(rng.uniform(size=shape) - 0.5, dtype=dtype,
+                           device=device)
+
+
+def estimate_extreme_eigs(
+    A: Callable,
+    diag_inv: torch.Tensor,
+    shape,
+    dtype,
+    iters: int = 10,
+    transform=(0.0, 0.1, 0.0, 1.1),
+) -> tuple[float, float]:
+    """Estimate eigenvalue bounds of D^{-1}A by a few CG/Lanczos steps with a
+    noisy right-hand side, then apply the PETSc-style transform
+    (a*lmin + b*lmax, c*lmin + d*lmax) with the reference's (0, 0.1, 0, 1.1)
+    (elasticity.c:540: KSPChebyshevEstEigSet 0,0.1,0,1.1).
+
+    The CG coefficients stay on the device until the loop ends; one read
+    brings them to the host, where the Lanczos tridiagonal's eigenvalues
+    are taken in float64. Returns (lam_min_bound, lam_max_bound) as floats.
+    """
+    a, bb, c, d = transform
+    r = eig_start_vector(shape, dtype, diag_inv.device)
+    z = diag_inv * r
+    p = z
+    rz = dot2(r, z)
+    coefs = []
+    for _ in range(iters):
+        Ap = A(p)
+        alpha = rz / dot2(p, Ap)
+        r = r - alpha.to(dtype) * Ap
+        z = diag_inv * r
+        rz_new = dot2(r, z)
+        beta = rz_new / rz
+        coefs += [alpha, beta]
+        p = z + beta.to(dtype) * p
+        rz = rz_new
+    ab = np.asarray(torch.stack(coefs).tolist(),
+                    dtype=np.float64).reshape(iters, 2)
+    # Krylov breakdown: once r = 0 (the space is exhausted, e.g. a level
+    # with fewer free DOFs than iters) the next coefficients are 0/0. The
+    # Lanczos matrix of the steps before it is exact, so keep those. (The
+    # JAX version takes the NaNs into eigvalsh and returns NaN bounds.)
+    bad = ~np.isfinite(ab).all(axis=1) | (ab[:, 0] == 0)
+    k = int(np.argmax(bad)) if bad.any() else iters
+    if k == 0:
+        raise FloatingPointError("eigenvalue estimate: the first Lanczos "
+                                 f"step gave alpha = {ab[0, 0]}")
+    alphas, betas = ab[:k, 0], ab[:k, 1]
+    # Lanczos tridiagonal from CG coefficients
+    diag = 1.0 / alphas
+    diag[1:] += betas[:-1] / alphas[:-1]
+    off = np.sqrt(np.abs(betas[:-1])) / alphas[:-1]
+    eigs = np.linalg.eigvalsh(np.diag(diag) + np.diag(off, 1)
+                              + np.diag(off, -1))
+    lmin, lmax = float(eigs[0]), float(eigs[-1])
+    return a * lmin + bb * lmax, c * lmin + d * lmax

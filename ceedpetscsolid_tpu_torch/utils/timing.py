@@ -5,12 +5,14 @@ Vector Setup", "libCEED Setup", "SNES Setup", "SNES Solve", surfaced by
 
 Each ElasticityProblem owns its StageLog. Stage times are host wall clock;
 a stage that ends with device work still queued is synchronised first
-(`sync`), so the time includes that work.
+(`sync`), so the time includes that work. `cuda_time_ms` times one call on
+the card with CUDA events (kernel and operator timings).
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from dataclasses import dataclass, field
 
@@ -21,6 +23,23 @@ def sync(device: torch.device) -> None:
     """Wait for queued work on `device` (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of fn() in ms, after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
 
 
 @dataclass

@@ -5,24 +5,43 @@
 
 Phases, each of which raises on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of the fused-apply CUDA kernel from the checkout's sources;
+  2. build of the CUDA kernels from the checkout's sources (one nvcc per
+     compile unit, all started together);
   3. kernel vs its plain torch version on the same inputs: hyperFS degree 4
-     on a 24^3 box (13,824 elements, 2,738,019 DoF), and degrees 2 and 3 on
-     a 4^3 box and on the scrambled (unstructured-numbering) 4^3 box.
+     on a 24^3 box (13,824 elements, 2,738,019 DoF), degrees 2 and 3 on a
+     4^3 box and on the scrambled (unstructured-numbering) 4^3 box, and
+     degrees 1 and 2 on the 16^3 box (phase 7's (2,2) and (3,3) levels).
      float64 kernel vs float64 plain: max|diff| <= 1e-12 max|ref|;
      float32 kernel vs float64 plain: |diff| <= 2e-5 |ref| + 1e-6 max|ref|
      (float32 rounding alone reaches ~6e-7 max|ref| in the plain version);
+  3b. the fused apply's P < Q instances (2, 5), (3, 5), (5, 6) (a coarse
+     p-multigrid level at the fine level's Gauss rule, or -qextra 1) against
+     the plain version on the 4^3 box and the scrambled 4^3 box, (2, 5) and
+     (3, 5) also on the 8^3 box (phase 8's levels), at the tolerances of
+     phase 3, and their CUDA-event times on the 16^3 box;
   4. CUDA-event times (median of 20 calls after warm-up) of kernel and plain
      version, residual and J.v, at the 24^3 degree-4 shapes, in float32;
   5. the reference smoke flags in hyperFS form through cli.main, checked
      against the JAX package's result on the same flags;
-  6. the main path: hyperFS degree 4 on a 16^3 box (823,875 DoF), -test,
-     -multigrid none, one increment, float32, through ElasticityProblem;
-     kernel launch counters are reset just before and read just after, and
-     a float64 twin of the same solve checks the float32 answer.
-Then one JSON line of per-kernel results, the card line, and as the last
-line {"ok": true, "device": {...}}. Without a CUDA device, or without the
-package beside this script, it exits non-zero and prints no result.
+  6. slice 1's main path: hyperFS degree 4 on a 16^3 box (823,875 DoF),
+     -test, -multigrid none (Jacobi CG), one increment, float32, through
+     ElasticityProblem; a float64 twin of the same solve checks the answer;
+  7. slice 2's main path: the same problem with the p-multigrid
+     preconditioner (logarithmic levels [1, 2, 4], native level quadrature,
+     Chebyshev(3) smoothers, Chebyshev(30) coarse solve), float32, with its
+     float64 twin, held against phase 6's answer and its CG count;
+  8. the p-MG solve at 8^3 with fine level quadrature, so that the (2, 5)
+     and (3, 5) instances run inside a solve;
+  9. the row-gather probes (K3-K6): the entry point
+     `python -m ceedpetscsolid_tpu_torch.ops.gather_probe` as a user runs it,
+     then each kernel bitwise against tab[idx] at the probe's shape with
+     CUDA-event medians, and gather_loop vs index_select at the production
+     shape.
+Kernel launch counters are set to 0 just before each main path (phases 6,
+7, 8, 9) and read just after. Then one JSON line of per-kernel results, the
+card line, and as the last line {"ok": true, "device": {...}}. Without a
+CUDA device, or without the package beside this script, it exits non-zero
+and prints no result.
 """
 
 import contextlib
@@ -43,8 +62,15 @@ SMOKE_FLAGS = ["-problem", "hyperFS", "-test", "-degree", "3", "-nu", "0.3",
                "-num_steps", "1"]
 SMOKE_REF_RC, SMOKE_REF_L2 = 1, 6.21859e-02
 TPU_KERNEL = "ceedpetscsolid_tpu/ops/pallas_apply.py:172"
-KERNEL_BOX, SOLVE_BOX = 24, 16       # elements per side: phases 3-4, phase 6
+KERNEL_BOX, SOLVE_BOX = 24, 16       # elements per side: phases 3-4, 6-7
+FINE_LEVEL_BOX = 8                   # phase 8
+PQ_LESS = ((2, 5), (3, 5), (5, 6))   # phase 3b
 CU_SOURCE = "ceedpetscsolid_tpu_torch/csrc/fused_apply.cu"
+PROBE_SOURCE = "ceedpetscsolid_tpu_torch/csrc/gather_probe.cu"
+PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
+             "take_along_axis": "scripts/try_pallas_gather.py:56",
+             "loop": "scripts/try_pallas_gather.py:70",
+             "onehot": "scripts/try_pallas_gather.py:85"}
 FAILED = []                          # phase-3 comparisons that failed
 
 
@@ -61,26 +87,7 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median CUDA-event time of fn() in ms."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return float(np.median(ts))
-
-
-def make_case(mesh, degree, dtype, device, seed):
+def make_case(mesh, degree, dtype, device, seed, qextra=0):
     """Factory, qdata and seeded inputs u, v on `device`. The amplitude
     shrinks with the element size so gradu stays ~1e-2 on every mesh, as
     with the 1e-3 inputs on the 3^3 boxes of tests/test_pallas_apply.py
@@ -91,8 +98,8 @@ def make_case(mesh, degree, dtype, device, seed):
     from ceedpetscsolid_tpu_torch.mesh.fespace import build_fespace
     from ceedpetscsolid_tpu_torch.ops.operator import OperatorFactory
 
-    f = OperatorFactory(build_fespace(mesh, degree), dtype=dtype,
-                        device=device)
+    f = OperatorFactory(build_fespace(mesh, degree), qextra=qextra,
+                        dtype=dtype, device=device)
     rng = np.random.default_rng(seed)
     N = f.space.num_nodes
     amp = 3e-3 / round(f.nelem ** (1 / 3))
@@ -119,15 +126,16 @@ def compare(name, got, ref, f64):
     return float(err.max())
 
 
-def check_kernel(label, mesh, degree, device, phys):
-    """Kernel vs plain on one mesh/degree, f64 and f32; returns the f32
-    max abs errors (residual ve, J.v)."""
+def check_kernel(label, mesh, degree, device, phys, qextra=0):
+    """Kernel vs plain on one mesh/degree (P = degree + 1, Q = P + qextra),
+    f64 and f32; returns the f32 max abs errors (residual ve, J.v)."""
     import torch
 
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
     from ceedpetscsolid_tpu_torch.ops.basis import Basis3D
 
-    f, q, u, v = make_case(mesh, degree, torch.float64, device, seed=degree)
+    f, q, u, v = make_case(mesh, degree, torch.float64, device, seed=degree,
+                           qextra=qextra)
     conn, b64 = f.restr.conn, f.basis
     ve0, st0 = fa.residual_plain(u, conn, q, b64, phys)
     jv0 = fa.jacobian_plain(v, conn, q, st0, b64, phys)
@@ -171,8 +179,10 @@ def main():
     from ceedpetscsolid_tpu_torch.mesh.scrambled import scrambled_box_mesh
     from ceedpetscsolid_tpu_torch.models import Physics
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
-    from ceedpetscsolid_tpu_torch.problem import (Config, ElasticityProblem,
-                                                  select_device)
+    from ceedpetscsolid_tpu_torch.ops import gather_probe as gp
+    from ceedpetscsolid_tpu_torch.problem import select_device
+    from ceedpetscsolid_tpu_torch.utils.profile_solve import make_problem
+    from ceedpetscsolid_tpu_torch.utils.timing import cuda_time_ms as time_ms
 
     dev = select_device("cuda")
     t_start = time.perf_counter()
@@ -186,10 +196,14 @@ def main():
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     lib, ptx = build()
-    log(f"[2] kernel build {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    for line in ptx.splitlines():
-        if re.search(r"Used \d+ registers|spill", line):
-            log("    " + line.strip())
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptx)]
+    spills = [ln.strip() for ln in ptx.splitlines()
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    log(f"[2] kernel build {time.perf_counter() - t0:.1f} s -> {lib.name}: "
+        f"{len(regs)} kernels, registers {min(regs, default=0)}-"
+        f"{max(regs, default=0)}, {len(spills)} with spills")
+    for line in spills:
+        log("    " + line)
 
     # ---- 3. kernel vs plain ---------------------------------------------
     phys = Physics(nu=0.3, E=1.0)
@@ -197,11 +211,40 @@ def main():
     n = KERNEL_BOX
     errs = check_kernel(f"{n}^3 p4 box", box_mesh((n, n, n)), 4, dev, phys)
     for deg in (2, 3):
-        check_kernel(f"4^3 p{deg} box", box_mesh((4, 4, 4)), deg, dev, phys)
-        check_kernel(f"4^3 p{deg} scrambled", scrambled_box_mesh((4, 4, 4), 4),
-                     deg, dev, phys)
+        errs += check_kernel(f"4^3 p{deg} box", box_mesh((4, 4, 4)), deg, dev,
+                             phys)
+        errs += check_kernel(f"4^3 p{deg} scrambled",
+                             scrambled_box_mesh((4, 4, 4), 4), deg, dev, phys)
+    m = SOLVE_BOX
+    for deg in (1, 2):      # phase 7's p = 1 and p = 2 levels, (2,2), (3,3)
+        errs += check_kernel(f"{m}^3 p{deg} box", box_mesh((m, m, m)), deg,
+                             dev, phys)
+    log("[3b] P < Q instances vs plain version")
+    k = FINE_LEVEL_BOX
+    for P, Q in PQ_LESS:
+        for label, mesh in (("box", box_mesh((4, 4, 4))),
+                            ("scrambled", scrambled_box_mesh((4, 4, 4), 4))):
+            errs += check_kernel(f"4^3 (P,Q)=({P},{Q}) {label}", mesh,
+                                 P - 1, dev, phys, qextra=Q - P)
+        if Q == 5:          # phase 8's fine-quadrature levels
+            errs += check_kernel(f"{k}^3 (P,Q)=({P},{Q}) box",
+                                 box_mesh((k, k, k)), P - 1, dev, phys,
+                                 qextra=Q - P)
     if FAILED:
         raise AssertionError(f"kernel disagrees with plain version: {FAILED}")
+    log(f"    times at {m}^3, float32 ({card}):")
+    for P, Q in PQ_LESS:
+        f, q, u, v = make_case(box_mesh((m, m, m)), P - 1, torch.float32, dev,
+                               P, qextra=Q - P)
+        conn, b = f.restr.conn, f.basis
+        _, st = fa.residual_plain(u, conn, q, b, phys)
+        t = [time_ms(lambda: fa.residual(u, conn, q, b, phys)),
+             time_ms(lambda: fa.residual_plain(u, conn, q, b, phys)),
+             time_ms(lambda: fa.jacobian(v, conn, q, st, b, phys)),
+             time_ms(lambda: fa.jacobian_plain(v, conn, q, st, b, phys))]
+        log(f"    (P,Q)=({P},{Q}) residual {t[0]:.4f} ms (plain {t[1]:.4f} ms)"
+            f", J.v {t[2]:.4f} ms (plain {t[3]:.4f} ms)")
+    del f, q, u, v, st
 
     # ---- 4. times at the 24^3 degree-4 shapes, float32 ----------------------
     f, q, u, v = make_case(box_mesh((n, n, n)), 4, torch.float32, dev, 4)
@@ -236,61 +279,147 @@ def main():
     if rc != SMOKE_REF_RC or abs(l2 - SMOKE_REF_L2) > 1e-3 * SMOKE_REF_L2:
         raise AssertionError("CLI smoke disagrees with the JAX package")
 
-    # ---- 6. main path: 16^3 degree-4 hyperFS solve, float32 ----------------
-    def solve(dtype):
-        f32 = dtype == torch.float32
-        cfg = Config(problem="hyperFS", degree=4, nu=0.3, E=1.0,
-                     test_mode=True, box_faces=(SOLVE_BOX,) * 3, multigrid="none",
-                     num_increments=1, device=dev, dtype=dtype,
-                     ksp_rtol=1e-6 if f32 else 1e-10)
-        if f32:
-            cfg.newton.rtol = 1e-6          # the CLI's float32 policy
-        prob = ElasticityProblem(cfg)
-        return prob, prob.solve()
+    # ---- 6-8. solves through ElasticityProblem -----------------------------
+    def solve(dtype, box, multigrid="none", level_quadrature="native"):
+        """One -test hyperFS degree-4 increment; launch counts are set to 0
+        just before the solve and read just after."""
+        prob = make_problem(box, multigrid, dev, dtype, level_quadrature)
+        fa.COUNTS.reset()
+        info = prob.solve()
+        counts = dict(fa.COUNTS.by_pq)
+        return prob, info, counts, prob.mms_error(info.u), \
+            prob.strain_energy(info.u)
 
-    fa.COUNTS.reset()
-    prob, info = solve(torch.float32)
-    launches = {"residual": fa.COUNTS.residual_launches,
-                "jacobian": fa.COUNTS.jacobian_launches}
-    err = prob.mms_error(info.u)
-    energy = prob.strain_energy(info.u)
-    log(f"[6] hyperFS p4 {SOLVE_BOX}^3 float32: {info.dofs} DoF, setup "
-        f"{prob.setup_time:.2f} s")
-    log(f"    converged {info.converged} ({info.reason}), SNES "
-        f"{info.snes_iters}, KSP {info.ksp_iters}, rnorm {info.rnorm:.3e}")
-    log(f"    solve {info.solve_time:.3f} s (Jacobi diagonal builds "
-        f"{info.pc_time:.3f} s), {info.mdofs_per_sec:.2f} MDoF/s "
-        f"(1e-6 dofs KSP / time) ({card})")
-    log(f"    MMS rel-L2 {err:.6e}, strain energy {energy:.10e}")
-    log(f"    kernel launches: residual {launches['residual']}, "
-        f"jacobian {launches['jacobian']}")
-    _, stash = prob._nonlinear_residual(info.u, prob.bc_values(1.0), prob.F)
-    t_mv = time_ms(lambda: prob._jacobian_action(info.u, stash))
-    per_it = info.solve_time / max(info.ksp_iters, 1) * 1e3
-    log(f"    J.v operator {t_mv:.4f} ms vs {per_it:.4f} ms wall per KSP "
+    def report(tag, prob, info, counts, err, energy):
+        log(f"{tag} {info.dofs} DoF, levels {prob.level_degrees}, setup "
+            f"{prob.setup_time:.2f} s")
+        log(f"    converged {info.converged} ({info.reason}), SNES "
+            f"{info.snes_iters}, KSP {info.ksp_iters}, rnorm {info.rnorm:.3e}")
+        log(f"    solve {info.solve_time:.3f} s (preconditioner setup "
+            f"{info.pc_time:.3f} s), {info.mdofs_per_sec:.2f} MDoF/s "
+            f"(1e-6 dofs KSP / time) ({card})")
+        log(f"    MMS rel-L2 {err:.6e}, strain energy {energy:.10e}")
+        log("    kernel launches: " + ", ".join(
+            f"{m} (P,Q)=({P},{Q}) {k}" for (m, P, Q), k in sorted(counts.items())))
+        if not info.converged or not math.isfinite(err):
+            raise AssertionError(f"{tag} solve did not converge")
+
+    def check_twin(tag, box, info, err, energy, **kw):
+        """The float64 twin of a float32 solve: same answer to 1e-3."""
+        prob64, info64, _, err64, en64 = solve(torch.float64, box, **kw)
+        du = float(torch.linalg.norm(info.u.double() - info64.u)
+                   / torch.linalg.norm(info64.u))
+        log(f"    float64 twin: SNES {info64.snes_iters}, KSP "
+            f"{info64.ksp_iters}, MMS rel-L2 {err64:.6e}, energy {en64:.10e},"
+            f" |u32-u64|/|u64| {du:.3e}")
+        if not (info64.converged and du <= 1e-3
+                and abs(err - err64) <= 1e-3 * err64
+                and abs(energy - en64) <= 1e-3 * abs(en64)):
+            raise AssertionError(f"{tag} float32 solve disagrees with its "
+                                 "float64 twin")
+
+    def fine_jv_ms(prob, info):
+        """CUDA-event time of one BC-masked fine J.v operator at the
+        solution."""
+        _, stash = prob._nonlinear_residual(info.u, prob.bc_values(1.0),
+                                            prob.F)
+        return time_ms(lambda: prob._jacobian_action(info.u, stash))
+
+    # ---- 6. slice 1's main path: Jacobi CG ----------------------------------
+    prob, info, c6, err6, en6 = solve(torch.float32, SOLVE_BOX)
+    report(f"[6] hyperFS p4 {SOLVE_BOX}^3 float32, Jacobi CG:", prob, info, c6,
+           err6, en6)
+    launches6 = {m: sum(k for (mm, _, _), k in c6.items() if mm == m)
+                 for m in ("residual", "jacobian")}
+    if min(launches6.values()) < 1:
+        raise AssertionError(f"main path skipped a kernel: {launches6}")
+    t_mv = fine_jv_ms(prob, info)
+    ksp6 = info.ksp_iters
+    log(f"    J.v operator {t_mv:.4f} ms vs "
+        f"{info.solve_time / max(ksp6, 1) * 1e3:.4f} ms wall per KSP "
         "iteration (the rest: vector ops, Newton/line search, host syncs)")
-    if not info.converged or not math.isfinite(err):
-        raise AssertionError("float32 main-path solve did not converge")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
-    prob64, info64 = solve(torch.float64)
-    err64 = prob64.mms_error(info64.u)
-    en64 = prob64.strain_energy(info64.u)
-    du = float(torch.linalg.norm(info.u.double() - info64.u)
-               / torch.linalg.norm(info64.u))
-    log(f"    float64 twin: SNES {info64.snes_iters}, KSP {info64.ksp_iters},"
-        f" MMS rel-L2 {err64:.6e}, energy {en64:.10e}, |u32-u64|/|u64| "
-        f"{du:.3e}")
-    if not (info64.converged and du <= 1e-3
-            and abs(err - err64) <= 1e-3 * err64
-            and abs(energy - en64) <= 1e-3 * abs(en64)):
-        raise AssertionError("float32 solve disagrees with its float64 twin")
+    check_twin("[6]", SOLVE_BOX, info, err6, en6)
+    del prob, info
+    torch.cuda.empty_cache()
+
+    # ---- 7. slice 2's main path: p-multigrid CG ----------------------------
+    pmg = dict(multigrid="logarithmic", level_quadrature="native")
+    prob, info, c7, err7, en7 = solve(torch.float32, SOLVE_BOX, **pmg)
+    report(f"[7] hyperFS p4 {SOLVE_BOX}^3 float32, p-MG CG (native levels, "
+           "Chebyshev coarse):", prob, info, c7, err7, en7)
+    need = [("residual", 5, 5), ("jacobian", 5, 5), ("jacobian", 3, 3),
+            ("jacobian", 2, 2)]
+    if min(c7.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"p-MG path skipped a kernel instance: {c7}")
+    launches7 = {m: sum(k for (mm, _, _), k in c7.items() if mm == m)
+                 for m in ("residual", "jacobian")}
+    t_mv = fine_jv_ms(prob, info)
+    per_it = (info.solve_time - info.pc_time) / max(info.ksp_iters, 1) * 1e3
+    log(f"    {launches7['jacobian'] / max(info.ksp_iters, 1):.1f} J.v kernel "
+        "launches per CG iteration (eigenvalue-estimate applies included); "
+        f"wall per CG iteration {per_it:.4f} ms (solve minus preconditioner "
+        f"setup, over KSP) vs one fine J.v operator {t_mv:.4f} ms")
+    log(f"    vs phase 6 (Jacobi): KSP {info.ksp_iters} vs {ksp6}; MMS rel-L2 "
+        f"{err7:.6e} vs {err6:.6e}; energy {en7:.10e} vs {en6:.10e}")
+    if not info.ksp_iters < ksp6:
+        raise AssertionError("p-MG took no fewer CG iterations than Jacobi")
+    if not (abs(err7 - err6) <= 1e-3 * err6 and abs(en7 - en6) <= 1e-3 * en6):
+        raise AssertionError("p-MG answer disagrees with the Jacobi answer")
+    check_twin("[7]", SOLVE_BOX, info, err7, en7, **pmg)
+    del prob, info
+    torch.cuda.empty_cache()
+
+    # ---- 8. p-MG with fine level quadrature -------------------------------
+    prob, info, c8, err8, en8 = solve(torch.float32, FINE_LEVEL_BOX,
+                                      multigrid="logarithmic",
+                                      level_quadrature="fine")
+    report(f"[8] hyperFS p4 {FINE_LEVEL_BOX}^3 float32, p-MG CG (fine "
+           "levels):", prob, info, c8, err8, en8)
+    if min(c8.get(("jacobian", P, 5), 0) for P in (2, 3, 5)) < 1:
+        raise AssertionError(f"fine-level path skipped an instance: {c8}")
+    del prob, info
+
+    # ---- 9. row-gather probes ---------------------------------------------
+    gp.COUNTS.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = gp.main([])
+    launches9 = dict(gp.COUNTS.launches)
+    log("[9] python -m ceedpetscsolid_tpu_torch.ops.gather_probe -> rc "
+        f"{rc}, launches {launches9}")
+    for line in buf.getvalue().splitlines():
+        log("    | " + line)
+    if rc != 0 or min(launches9.values()) < 1:
+        raise AssertionError("gather probe entry point failed")
+    tab, idx = gp.probe_inputs(dev)
+    cmp = gp.compare_probes(tab, idx)
+    ptimes = gp.time_probes(tab, idx)
+    W, R, C = gp.PROBE_SHAPE
+    log(f"    at ({W}, {C}) / ({R},), vs tab[idx] ({card}):")
+    for name, (equal, e) in cmp.items():
+        log(f"    gather_{name:16s} bitwise {equal}  max|diff| {e:.3e}  "
+            f"{ptimes[name][0]:.4f} ms (plain {ptimes[name][1]:.4f} ms)")
+    if not all(equal for equal, _ in cmp.values()):
+        raise AssertionError(f"a probe kernel is not bitwise tab[idx]: {cmp}")
+    prod = gp.time_production(dev)
+    Wp, Rp, Cp = gp.PRODUCTION_SHAPE
+    log(f"    production ({Rp} rows of {Cp} from ({Wp}, {Cp}), "
+        f"{prod['gb']:.4f} GB): gather_loop {prod['ms']:.4f} ms "
+        f"({prod['gbps']:.1f} GB/s), index_select {prod['plain_ms']:.4f} ms "
+        f"({prod['plain_gbps']:.1f} GB/s) ({card})")
 
     kernels = [
         {"name": f"fused_apply_{mode}", "route": "cuda", "source": CU_SOURCE,
-         "replaces": TPU_KERNEL, "launches": launches[mode],
+         "replaces": TPU_KERNEL, "launches": launches7[mode],
          "max_abs_err": e, "ms": times[mode], "plain_ms": times[mode + "_plain"]}
-        for mode, e in (("residual", errs[0]), ("jacobian", errs[1]))
+        for mode, e in (("residual", max(errs[0::2])),
+                        ("jacobian", max(errs[1::2])))
+    ] + [
+        {"name": f"gather_{name}", "route": "cuda", "source": PROBE_SOURCE,
+         "replaces": PROBE_TPU[name], "launches": launches9[name],
+         "max_abs_err": cmp[name][1], "ms": ptimes[name][0],
+         "plain_ms": ptimes[name][1]}
+        for name in gp.KINDS
     ]
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

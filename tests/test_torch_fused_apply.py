@@ -136,8 +136,13 @@ def test_kernel_input_checks():
                            b, st)
     with pytest.raises(TypeError):
         fused_apply._check(u, conn.int(), q, b, st)
-    tf5 = TFactory(tbuild(tm, 2), qextra=1, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="qextra"):
+    # P < Q is instantiated: (3, 4), degree 2 at -qextra 1
+    tf4 = TFactory(tbuild(tm, 2), qextra=1, dtype=torch.float64)
+    fused_apply._check(u, tf4.restr.conn, tf4.compute_qdata(), tf4.basis,
+                       torch.zeros((9, tf4.nelem, tf4.Q3), dtype=torch.float64))
+    # (P, Q) = (3, 7), degree 2 at -qextra 4, has no instance
+    tf5 = TFactory(tbuild(tm, 2), qextra=4, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="no instance for P=3, Q=7"):
         fused_apply._check(u, tf5.restr.conn, tf5.compute_qdata(), tf5.basis,
                            torch.zeros((9, tf5.nelem, tf5.Q3),
                                        dtype=torch.float64))

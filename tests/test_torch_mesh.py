@@ -72,6 +72,8 @@ def test_port_import_leaves_jax_out():
             "import ceedpetscsolid_tpu_torch, ceedpetscsolid_tpu_torch.cli, "
             "ceedpetscsolid_tpu_torch.problem, "
             "ceedpetscsolid_tpu_torch.ops.fused_apply, "
+            "ceedpetscsolid_tpu_torch.ops.gather_probe, "
+            "ceedpetscsolid_tpu_torch.solve.pmg, "
             "ceedpetscsolid_tpu_torch.interop\n"
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'ceedpetscsolid_tpu.')))\n"
