@@ -6,7 +6,8 @@ Vector Setup", "libCEED Setup", "SNES Setup", "SNES Solve", surfaced by
 Each ElasticityProblem owns its StageLog. Stage times are host wall clock;
 a stage that ends with device work still queued is synchronised first
 (`sync`), so the time includes that work. `cuda_time_ms` times one call on
-the card with CUDA events (kernel and operator timings).
+the card with CUDA events (kernel and operator timings), the host's enqueue
+included; `cuda_device_ms` times the device's work alone.
 """
 
 from __future__ import annotations
@@ -39,6 +40,61 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def _sleep_ms_per_mcycle() -> float:
+    """Device time of torch.cuda._sleep(10**6), in ms."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10**6)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def cuda_device_ms(fn, reps: int = 20, inner: int = 10,
+                   warmup: int = 3) -> float:
+    """Median device time of one fn() in ms, without the host's enqueue.
+
+    Each sample brackets `inner` calls with CUDA events, enqueued behind a
+    torch.cuda._sleep that holds the stream until the host has enqueued
+    them all, so the events see only the device's work (and the gaps the
+    device itself leaves between kernels). The sleep starts at four times
+    the measured enqueue time plus 1 ms; a sample whose enqueue outlasted
+    it (a host stall) is dropped and the sleep doubled, at most 8 times."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int((4 * enqueue_ms + 1.0) / _sleep_ms_per_mcycle() * 1e6)
+    ts, stalls = [], 0
+    while len(ts) < reps:
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        if s.elapsed_time(a) > host_ms:
+            ts.append(a.elapsed_time(b) / inner)
+            continue
+        stalls += 1
+        if stalls > 8:
+            raise RuntimeError(
+                f"cuda_device_ms: the enqueue ({host_ms:.3f} ms) outlasted "
+                f"the stream-holding sleep ({s.elapsed_time(a):.3f} ms) "
+                f"{stalls} times")
+        cycles *= 2
     return statistics.median(ts)
 
 

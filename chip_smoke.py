@@ -20,7 +20,9 @@ Phases, each of which raises on failure:
      (3, 5) also on the 8^3 box (phase 8's levels), at the tolerances of
      phase 3, and their CUDA-event times on the 16^3 box;
   4. CUDA-event times (median of 20 calls after warm-up) of kernel and plain
-     version, residual and J.v, at the 24^3 degree-4 shapes, in float32;
+     version, residual and J.v, at the 24^3 degree-4 shapes, in float32: of
+     one call, the host's enqueue included, and of the device's work alone
+     (utils.timing.cuda_device_ms);
   5. the reference smoke flags in hyperFS form through cli.main, checked
      against the JAX package's result on the same flags;
   6. slice 1's main path: hyperFS degree 4 on a 16^3 box (823,875 DoF),
@@ -33,9 +35,14 @@ Phases, each of which raises on failure:
   8. the p-MG solve at 8^3 with fine level quadrature, so that the (2, 5)
      and (3, 5) instances run inside a solve;
   9. the row-gather probes (K3-K6): the entry point
-     `python -m ceedpetscsolid_tpu_torch.ops.gather_probe` as a user runs it,
-     then each kernel bitwise against tab[idx] at the probe's shape with
-     CUDA-event medians, and gather_loop vs index_select at the production
+     `python -m ceedpetscsolid_tpu_torch.ops.gather_probe` as a user runs it
+     (K3/K4 must launch as thread-block clusters of more than one block),
+     then each kernel bitwise against its plain version (NaN rows included)
+     on gather_probe.probe_cases: the script's shape, a ragged one, a narrow
+     table, one that spans a cluster, one cut into column slabs, and
+     out-of-range indices (the JAX ops' wrap, NaN-fill, clamp and zero-row
+     semantics); call and device times of each kernel and plain version at
+     the probe's shape, and gather_loop vs index_select at the production
      shape.
 Kernel launch counters are set to 0 just before each main path (phases 6,
 7, 8, 9) and read just after. Then one JSON line of per-kernel results, the
@@ -157,6 +164,66 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0):
     return e_r, e_j
 
 
+def gather_phase(dev, card):
+    """Phase 9. The probe entry point as a user runs it, launch counts set
+    to 0 just before and read just after; then every kernel against its
+    plain version on gather_probe.probe_cases; then call and device times
+    at the probe's shape and the production-shape gather. Returns the
+    entry point's launches, each kernel's max abs difference over the cases
+    and its times."""
+    from ceedpetscsolid_tpu_torch.ops import gather_probe as gp
+
+    gp.COUNTS.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = gp.main([])
+    launches = dict(gp.COUNTS.launches)
+    clusters = dict(gp.COUNTS.cluster_dims)
+    log("[9] python -m ceedpetscsolid_tpu_torch.ops.gather_probe -> rc "
+        f"{rc}, launches {launches}")
+    for line in buf.getvalue().splitlines():
+        log("    | " + line)
+    if rc != 0 or min(launches.values()) < 1:
+        raise AssertionError("gather probe entry point failed")
+    log(f"    K3/K4 launch attribute cudaLaunchAttributeClusterDimension: "
+        f"{clusters}")
+    if any(clusters.get(k, (1,))[0] < 2 for k in gp.STAGED):
+        raise AssertionError(f"K3/K4 did not launch as clusters: {clusters}")
+    errs, bad = dict.fromkeys(gp.KINDS, 0.0), []
+    for label, tab, idx in gp.probe_cases(dev):
+        (W, C), R = tab.shape, idx.shape[0]
+        p = gp.plan(W, C, R)
+        cmp = gp.compare_probes(tab, idx)
+        log(f"    {label:32s} cluster {p.cs} x {C // p.slab} slab(s) x "
+            f"{p.groups} group(s): " + ", ".join(
+                f"{n} {'bitwise' if eq else 'DIFFERS'} {e:.1e}"
+                for n, (eq, e) in cmp.items()))
+        for n, (eq, e) in cmp.items():
+            errs[n] = max(errs[n], e)
+            if not eq:
+                bad.append((label, n))
+    if bad:
+        raise AssertionError(f"a probe kernel differs from its plain version: "
+                             f"{bad}")
+    tab, idx = gp.probe_inputs(dev)
+    times, bare = gp.time_probes(tab, idx), gp.time_index(tab, idx)
+    W, R, C = gp.PROBE_SHAPE
+    log(f"    times at ({W}, {C}) / ({R},) ({card}): one call (host enqueue "
+        "included) / device alone")
+    log(f"    bare tab[idx]            {bare['ms']:.4f} / "
+        f"{bare['device_ms']:.4f} ms")
+    for name, t in times.items():
+        log(f"    gather_{name:16s} {t['ms']:.4f} / {t['device_ms']:.4f} ms  "
+            f"(plain {t['plain_ms']:.4f} / {t['plain_device_ms']:.4f} ms)")
+    prod = gp.time_production(dev)
+    Wp, Rp, Cp = gp.PRODUCTION_SHAPE
+    log(f"    production ({Rp} rows of {Cp} from ({Wp}, {Cp}), "
+        f"{prod['gb']:.4f} GB): gather_loop {prod['ms']:.4f} ms "
+        f"({prod['gbps']:.1f} GB/s), index_select {prod['plain_ms']:.4f} ms "
+        f"({prod['plain_gbps']:.1f} GB/s) ({card})")
+    return launches, errs, times
+
+
 def main():
     try:
         import torch
@@ -179,9 +246,10 @@ def main():
     from ceedpetscsolid_tpu_torch.mesh.scrambled import scrambled_box_mesh
     from ceedpetscsolid_tpu_torch.models import Physics
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
-    from ceedpetscsolid_tpu_torch.ops import gather_probe as gp
     from ceedpetscsolid_tpu_torch.problem import select_device
     from ceedpetscsolid_tpu_torch.utils.profile_solve import make_problem
+    from ceedpetscsolid_tpu_torch.utils.timing import (
+        cuda_device_ms as device_ms)
     from ceedpetscsolid_tpu_torch.utils.timing import cuda_time_ms as time_ms
 
     dev = select_device("cuda")
@@ -253,19 +321,24 @@ def main():
     ndof = 3 * f.space.num_nodes
     res_op = f.make_residual_structured(phys)
     jac_op = f.make_jacobian_structured(phys)
-    times = {
-        "residual": time_ms(lambda: fa.residual(u, conn, q, b, phys)),
-        "residual_plain": time_ms(lambda: fa.residual_plain(u, conn, q, b, phys)),
-        "jacobian": time_ms(lambda: fa.jacobian(v, conn, q, st, b, phys)),
-        "jacobian_plain": time_ms(
-            lambda: fa.jacobian_plain(v, conn, q, st, b, phys)),
-        "residual_operator": time_ms(lambda: res_op(u, q)),
-        "jacobian_operator": time_ms(lambda: jac_op(v, q, st)),
+    calls = {
+        "residual": lambda: fa.residual(u, conn, q, b, phys),
+        "residual_plain": lambda: fa.residual_plain(u, conn, q, b, phys),
+        "jacobian": lambda: fa.jacobian(v, conn, q, st, b, phys),
+        "jacobian_plain": lambda: fa.jacobian_plain(v, conn, q, st, b, phys),
+        "residual_operator": lambda: res_op(u, q),
+        "jacobian_operator": lambda: jac_op(v, q, st),
     }
+    times = {k: time_ms(fn) for k, fn in calls.items()}
+    # one call a sample: the plain versions launch so many kernels that ten
+    # fill the launch queue, and the host then waits on the held stream
+    dtimes = {k: device_ms(calls[k], reps=10, inner=1) for k in
+              ("residual", "residual_plain", "jacobian", "jacobian_plain")}
     log(f"[4] times at {n}^3 p4, float32, {ndof} DoF ({card})")
     for k, t in times.items():
-        log(f"    {k:20s} {t:9.4f} ms  {1e-3 * ndof / t:10.1f} MDoF/s")
-    del f, q, u, v, st, res_op, jac_op
+        dev_t = f"  device {dtimes[k]:9.4f} ms" if k in dtimes else ""
+        log(f"    {k:20s} {t:9.4f} ms  {1e-3 * ndof / t:10.1f} MDoF/s{dev_t}")
+    del f, q, u, v, st, res_op, jac_op, calls
     torch.cuda.empty_cache()
 
     # ---- 5. reference smoke flags in hyperFS form ---------------------------
@@ -380,46 +453,20 @@ def main():
     del prob, info
 
     # ---- 9. row-gather probes ---------------------------------------------
-    gp.COUNTS.reset()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = gp.main([])
-    launches9 = dict(gp.COUNTS.launches)
-    log("[9] python -m ceedpetscsolid_tpu_torch.ops.gather_probe -> rc "
-        f"{rc}, launches {launches9}")
-    for line in buf.getvalue().splitlines():
-        log("    | " + line)
-    if rc != 0 or min(launches9.values()) < 1:
-        raise AssertionError("gather probe entry point failed")
-    tab, idx = gp.probe_inputs(dev)
-    cmp = gp.compare_probes(tab, idx)
-    ptimes = gp.time_probes(tab, idx)
-    W, R, C = gp.PROBE_SHAPE
-    log(f"    at ({W}, {C}) / ({R},), vs tab[idx] ({card}):")
-    for name, (equal, e) in cmp.items():
-        log(f"    gather_{name:16s} bitwise {equal}  max|diff| {e:.3e}  "
-            f"{ptimes[name][0]:.4f} ms (plain {ptimes[name][1]:.4f} ms)")
-    if not all(equal for equal, _ in cmp.values()):
-        raise AssertionError(f"a probe kernel is not bitwise tab[idx]: {cmp}")
-    prod = gp.time_production(dev)
-    Wp, Rp, Cp = gp.PRODUCTION_SHAPE
-    log(f"    production ({Rp} rows of {Cp} from ({Wp}, {Cp}), "
-        f"{prod['gb']:.4f} GB): gather_loop {prod['ms']:.4f} ms "
-        f"({prod['gbps']:.1f} GB/s), index_select {prod['plain_ms']:.4f} ms "
-        f"({prod['plain_gbps']:.1f} GB/s) ({card})")
+    launches9, perr, ptimes = gather_phase(dev, card)
 
     kernels = [
         {"name": f"fused_apply_{mode}", "route": "cuda", "source": CU_SOURCE,
          "replaces": TPU_KERNEL, "launches": launches7[mode],
-         "max_abs_err": e, "ms": times[mode], "plain_ms": times[mode + "_plain"]}
+         "max_abs_err": e, "ms": times[mode], "plain_ms": times[mode + "_plain"],
+         "device_ms": dtimes[mode], "plain_device_ms": dtimes[mode + "_plain"]}
         for mode, e in (("residual", max(errs[0::2])),
                         ("jacobian", max(errs[1::2])))
     ] + [
         {"name": f"gather_{name}", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_TPU[name], "launches": launches9[name],
-         "max_abs_err": cmp[name][1], "ms": ptimes[name][0],
-         "plain_ms": ptimes[name][1]}
-        for name in gp.KINDS
+         "max_abs_err": perr[name], **ptimes[name]}
+        for name in PROBE_TPU
     ]
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

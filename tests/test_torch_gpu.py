@@ -119,18 +119,35 @@ def test_solve_on_gpu_matches_cpu(cuda):
     assert abs(eg - ec) <= 1e-8 * ec and abs(wg - wc) <= 1e-8 * wc
 
 
-@pytest.mark.parametrize("shape", [gp.PROBE_SHAPE, (100, 300, 36),
-                                   (700, 1000, 8)])
+@pytest.mark.parametrize("shape", gp.CHECK_SHAPES)
 def test_gather_probes_bitwise(cuda, shape):
     """Each probe kernel against its plain version, bitwise: the script's
-    shape, a ragged one (partial row blocks and tiles), and a narrow
-    table."""
+    shape, a ragged one (partial row blocks and tiles), a narrow table, one
+    that spans a cluster of 8 (512 KB) and one cut into column slabs."""
     tab, idx = gp.probe_inputs(cuda, seed=1, shape=shape)
     for name, fn in gp.PROBES.items():
         got = fn(tab, idx)
         torch.cuda.synchronize()
         assert torch.equal(got, gp.PLAIN[name](tab, idx)), name
         assert torch.equal(got.cpu(), tab.cpu()[idx.cpu().long()]), name
+
+
+@pytest.mark.parametrize("shape", [gp.PROBE_SHAPE, (100, 300, 36),
+                                   (2000, 4096, 64), (4000, 512, 256)])
+def test_gather_probe_index_semantics(cuda, shape):
+    """Out-of-range indices (0, W-1, -1, -W, W, W+7, -W-1, the int32
+    extremes and random ones in [-2W, 2W)): every kernel bitwise equal to
+    its plain version on the card and on the CPU (the JAX-checked one):
+    NaN rows for K3/K4, clamped rows for K5, zero rows for K6."""
+    tab, idx = gp.probe_inputs(cuda, seed=2, shape=shape, out_of_range=True)
+    for name, fn in gp.PROBES.items():
+        got = fn(tab, idx)
+        torch.cuda.synchronize()
+        bits = got.view(torch.int32)
+        assert torch.equal(bits, gp.PLAIN[name](tab, idx).view(torch.int32)), \
+            name
+        ref = gp.PLAIN[name](tab.cpu(), idx.cpu())
+        assert torch.equal(bits.cpu(), ref.view(torch.int32)), name
 
 
 def test_gather_probe_counts_and_refusals(cuda):
@@ -140,14 +157,23 @@ def test_gather_probe_counts_and_refusals(cuda):
     gp.gather_onehot(tab, idx)
     assert gp.COUNTS.launches == {"take": 0, "take_along_axis": 0,
                                   "loop": 1, "onehot": 1}
+    gp.gather_take(tab, idx)
+    gp.gather_take_along_axis(tab, idx)
+    assert gp.COUNTS.cluster_dims == {"take": (8, 1, 1),
+                                      "take_along_axis": (8, 1, 1)}
     with pytest.raises(TypeError, match="int32"):
         gp.gather_take(tab, idx.long())
     with pytest.raises(ValueError, match="contiguous"):
         gp.gather_loop(tab.t().contiguous().t(), idx)
-    big = torch.zeros((20_000, 4), device=cuda)       # a 4-column slab: 320 KB
-    with pytest.raises(ValueError, match="no column slab"):
+    # 25,000 rows a block of a cluster of 8: 400 KB even at 4 columns
+    big = torch.zeros((200_000, 4), device=cuda)
+    with pytest.raises(ValueError, match="use gather_loop"):
         gp.gather_take(big, idx)
+    with pytest.raises(ValueError, match="use gather_loop"):
+        gp.gather_take_along_axis(torch.zeros((512, 30), device=cuda), idx)
     assert torch.equal(gp.gather_loop(big, idx), big[idx])
+    assert gp.COUNTS.launches == {"take": 1, "take_along_axis": 1,
+                                  "loop": 2, "onehot": 1}
     # odd width: the loop kernel's scalar path
     tab3 = torch.randn((50, 3), device=cuda)
     assert torch.equal(gp.gather_loop(tab3, idx % 50), tab3[idx % 50])
