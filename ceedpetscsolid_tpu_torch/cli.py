@@ -2,19 +2,19 @@
 binary (reference src/cloptions.c:26-285 and the summary output of
 elasticity.c:684-765). Port of ceedpetscsolid_tpu/cli.py.
 
-Usage (the reference's smoke test, elasticity.c:36, in hyperFS form):
-    python -m ceedpetscsolid_tpu_torch.cli -problem hyperFS -test -degree 3 \
-        -nu 0.3 -E 1 -dm_plex_box_faces 3,3,3 -multigrid none -num_steps 1
-and with the p-multigrid preconditioner and its Chebyshev coarse solve:
-    python -m ceedpetscsolid_tpu_torch.cli -problem hyperFS -test -degree 2 \
-        -nu 0.3 -E 1 -dm_plex_box_faces 2,2,2 -multigrid logarithmic \
-        -coarse_pc_type chebyshev -num_steps 1
+Usage (the reference's smoke test, elasticity.c:36: linElas, p-multigrid
+levels [1, 2, 3] with the AMG coarse solve, silent and 0 on success):
+    python -m ceedpetscsolid_tpu_torch.cli -test -degree 3 -nu 0.3 -E 1 \
+        -dm_plex_box_faces 3,3,3
+-problem takes linElas (the default), hyperSS, hyperFS and hyperFSIncomp;
+-coarse_pc_type gamg (the default) is the native SA-AMG V-cycle on the
+assembled p = 1 CSR, chebyshev a matrix-free p = 1 Chebyshev polynomial; at
+-degree 1 under a multigrid schedule the AMG V-cycle is the whole
+preconditioner (PCGAMG); -multigrid none is Jacobi CG.
 
 Runs on CUDA when a GPU is present (float32), else on the CPU (float64).
-Options the port does not implement yet (-coarse_pc_type gamg/amg, the
-default coarse solve under -multigrid logarithmic/uniform; -problem other
-than hyperFS; -mesh; -view_soln, -view_final_soln) raise
-NotImplementedError; unknown options are reported.
+Options the port does not implement yet (-mesh; -view_soln,
+-view_final_soln) raise NotImplementedError; unknown options are reported.
 """
 
 from __future__ import annotations
@@ -213,7 +213,8 @@ def _print_solver_view(cfg, prob):
     print("  KSP Object: (outer_) cg, natural norm")
     print(f"    rtol {cfg.ksp_rtol:g} max_it {cfg.ksp_max_it}")
     if cfg.multigrid == "none" or len(prob.level_degrees) == 1:
-        print("  PC Object: jacobi")
+        pc = "gamg(native SA-AMG)" if prob._use_amg else "jacobi"
+        print(f"  PC Object: {pc}")
         return
     print(f"  PC Object: mg (p-multigrid, {cfg.multigrid} schedule, "
           f"levels p = {prob.level_degrees})")
@@ -221,8 +222,12 @@ def _print_solver_view(cfg, prob):
           "eig bounds 0.1/1.1 * lambda_max (est per Jacobian)")
     if cfg.nu_smoother:
         print(f"    smoother physics: nu = {cfg.nu_smoother}")
-    print(f"    coarse: (coarse_) chebyshev({cfg.coarse_cheb_its}), "
-          "matrix-free p=1")
+    if cfg.coarse_solve == "amg":
+        print("    coarse: (coarse_) native SA-AMG V-cycle on assembled "
+              "p=1 CSR")
+    else:
+        print(f"    coarse: (coarse_) chebyshev({cfg.coarse_cheb_its}), "
+              "matrix-free p=1")
 
 
 def _print_summary(cfg, prob, info):

@@ -3,12 +3,12 @@
 The kernels have a plain C interface and are loaded with ctypes
 (ops/fused_apply.py, ops/gather_probe.py), so nvcc compiles them without
 PyTorch's headers. The fused apply's instances are split into one
-translation unit per P; every unit compiles in its own nvcc process, all
-started together, and one nvcc call links the objects. The library goes to
-`build/kernels/` at the checkout root, named by a hash of its sources and
-flags: a changed source builds anew, an unchanged one is reused. Building
-needs nvcc (PATH, $CUDA_HOME/bin or /usr/local/cuda/bin); without it
-`build()` raises.
+translation unit per (physics, P); every unit compiles in its own nvcc
+process, all started together, and one nvcc call links the objects. The
+library goes to `build/kernels/` at the checkout root, named by a hash of
+its sources and flags: a changed source builds anew, an unchanged one is
+reused. Building needs nvcc (PATH, $CUDA_HOME/bin or /usr/local/cuda/bin);
+without it `build()` raises.
 """
 
 from __future__ import annotations
@@ -19,16 +19,18 @@ import shutil
 import subprocess
 from pathlib import Path
 
-from ..ops.fused_apply import MAX_Q
+from ..ops.fused_apply import MAX_Q, PHYSICS
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 # (source, extra flags): one compile unit each; the fused apply's instance
-# limit comes from ops/fused_apply.MAX_Q, one unit per P = 2..MAX_Q
+# limit comes from ops/fused_apply.MAX_Q, one unit per (physics, P) with
+# P = 2..MAX_Q, plus the unit that holds the C entry point
 _FUSED = (f"-DCPS_FUSED_MAX_Q={MAX_Q}",)
 UNITS = (("fused_apply.cu", _FUSED),
-         *(("fused_apply.cu", (*_FUSED, f"-DCPS_FUSED_P={p}"))
-           for p in range(2, MAX_Q + 1)),
+         *(("fused_apply.cu", (*_FUSED, f"-DCPS_FUSED_PHYS={pw.kernel_id}",
+                               f"-DCPS_FUSED_P={p}"))
+           for pw in PHYSICS.values() for p in range(2, MAX_Q + 1)),
          ("gather_probe.cu", ()))
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",

@@ -4,11 +4,16 @@ tensors, so both packages can compute from the same state.
     qdata  (10, nelem, Q3)                    -> qdata
     stash  9 Mat3 planes (nelem, Q3), or the Pallas (9, e_pad, Q3p) array
                                               -> (9, nelem, Q3)
+    hyperFSIncomp's stash pair (mu at Q3, pressure at 1)
+                                              -> (tensor, tensor)
     u      (3, N)                             -> u
     Physics (anything with .nu and .E)        -> models.base.Physics
     p-MG preconditioner data: per-level inverse diagonals (3, N_l) and
     Chebyshev bounds (lo, hi)                 -> (tensors, float pairs)
     level masks (3, N_l) bool                 -> bool tensors
+    a CSR matrix (indptr, indices, data, n)   -> scipy.sparse.csr_matrix,
+                                                 as AMGPreconditioner.setup
+                                                 takes it
 
 Nothing here imports JAX: callers convert with np.asarray first.
 """
@@ -16,6 +21,7 @@ Nothing here imports JAX: callers convert with np.asarray first.
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from .models.base import Physics
@@ -80,3 +86,22 @@ def mask_from_jax(mask, device="cpu") -> torch.Tensor:
     if a.ndim != 2 or a.shape[0] != 3 or a.dtype != np.bool_:
         raise ValueError(f"mask must be (3, N) bool, got {a.shape} {a.dtype}")
     return _tensor(a, torch.bool, device)
+
+
+def stash_pair_from_jax(mu, pressure, nelem: int, Q3: int,
+                        dtype=torch.float64, device="cpu"):
+    """hyperFSIncomp's composite stash: the mu part's (Q3 points) and the
+    pressure part's (one point per element), each as stash_from_jax takes
+    it (JAX's factory.stash_view / pfactory.stash_view of the pair)."""
+    return (stash_from_jax(mu, nelem, Q3, dtype, device),
+            stash_from_jax(pressure, nelem, 1, dtype, device))
+
+
+def csr_from_jax(indptr, indices, data, n: int) -> sp.csr_matrix:
+    """A CSR matrix handed over as its three arrays (e.g. the JAX package's
+    CSRAssembler output), float64, for AMGPreconditioner.setup. Both
+    packages run the same C++ setup, so the same CSR gives the same
+    hierarchy."""
+    return sp.csr_matrix((np.array(data, np.float64),
+                          np.array(indices, np.int32),
+                          np.array(indptr, np.int64)), shape=(n, n))

@@ -1,28 +1,26 @@
 """Physics models (QFunction analogs) and their registry.
 
-Names match the reference's -problem CLI enum (elasticity.h:49-53). The port
-has hyperFS so far; linElas, hyperSS and hyperFSIncomp exist only in the
-JAX package and are refused by name.
+Names match the reference's -problem CLI enum (elasticity.h:49-53):
+linElas, hyperSS, hyperFS, hyperFSIncomp.
 """
 
-from . import hyper_fs
+from . import hyper_fs, hyper_fs_incomp, hyper_ss, lin_elas
 from .base import Physics
 
-REGISTRY = {"hyperFS": hyper_fs}
-NOT_PORTED = ("linElas", "hyperSS", "hyperFSIncomp")
+REGISTRY = {
+    "linElas": lin_elas,
+    "hyperSS": hyper_ss,
+    "hyperFS": hyper_fs,
+    "hyperFSIncomp": hyper_fs_incomp,
+}
 
 
 def get_model(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"-problem {name} is not ported to ceedpetscsolid_tpu_torch yet "
-            f"(ported: {sorted(REGISTRY)})")
     try:
         return REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"unknown problem {name!r}; choose from "
-            f"{sorted(REGISTRY) + list(NOT_PORTED)}"
+            f"unknown problem {name!r}; choose from {sorted(REGISTRY)}"
         ) from None
 
 

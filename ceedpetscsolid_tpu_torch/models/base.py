@@ -143,6 +143,20 @@ def mat_eye_plus(a: Mat3) -> Mat3:
     return Mat3(m)
 
 
+def mat_scale_eye_plus(s, a: Mat3) -> Mat3:
+    """s*I + A (s is a batch plane or a scalar)."""
+    m = list(a.m)
+    for d in range(3):
+        m[4 * d] = m[4 * d] + s
+    return Mat3(m)
+
+
+def sym(g: Mat3) -> Mat3:
+    """Symmetric part: 1/2 (g + g^T)."""
+    return Mat3.from_rows(
+        [[0.5 * (g[i, j] + g[j, i]) for j in range(3)] for i in range(3)])
+
+
 def unpack_qdata(qdata: torch.Tensor):
     """qdata (10, *batch) -> (wdetJ plane, dXdx Mat3 of views)."""
     return qdata[0], Mat3([qdata[1 + k] for k in range(9)])

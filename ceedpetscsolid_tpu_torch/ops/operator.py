@@ -3,10 +3,11 @@ Port of the conn-path subset of ceedpetscsolid_tpu/ops/operator.py.
 
 An operator application is gather (G) -> basis grad (B) -> pointwise
 physics (D) -> B^T -> scatter (G^T), the A = G^T B^T D B G decomposition of
-the reference (src/setuplibceed.c:529-542). The hyperFS residual and
+the reference (src/setuplibceed.c:529-542). Every model's residual and
 Jacobian run the first four stages as one fused element apply
 (ops/fused_apply.py: the hand-written CUDA kernel on the GPU, plain torch on
-the CPU); the owner-sum is the deterministic Restriction.scatter_add.
+the CPU), its pointwise physics named by a fused_apply.PHYSICS entry; the
+owner-sum is the deterministic Restriction.scatter_add.
 
 One factory serves every p-multigrid level (spaces coarse -> fine). Each
 level applies its physics either at the FINE level's Gauss points through a
@@ -14,7 +15,9 @@ P_l -> Q_fine basis with the shared fine qdata and stash (the reference's
 choice, src/setuplibceed.c:756-757), or at its own Gauss rule
 Q_l = degree_l + 1 + qextra with its own qdata and the stash re-interpolated
 exactly onto that rule (`LevelOps.stash_interp`, the JAX package's
-native-quadrature levels).
+native-quadrature levels). A factory built with `q1d` integrates every level
+at that rule instead: hyperFSIncomp's reduced-integration pressure term
+(Q = 1 + qextra), which has no native levels.
 
 Box and unstructured meshes take the same conn path. The JAX package's
 TPU-layout machinery (class-row restrictions, lattice/spectral box paths,
@@ -60,25 +63,32 @@ class OperatorFactory:
     or one per multigrid level (coarse -> fine)."""
 
     def __init__(self, spaces: FESpace | list[FESpace], qextra: int = 0,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cpu", q1d: int | None = None,
+                 share: "OperatorFactory | None" = None):
+        """q1d overrides the quadrature size (the reduced-integration
+        pressure operator of hyperFSIncomp, Q = 1 + qextra,
+        src/setuplibceed.c:406). share: a factory over the same spaces
+        whose restrictions this one reuses (identical index maps)."""
         if isinstance(spaces, FESpace):
             spaces = [spaces]
         self.dtype = dtype
         self.device = torch.device(device)
         fine = spaces[-1]
-        self.Q1d = fine.degree + 1 + qextra              # setuplibceed.c:252
+        # setuplibceed.c:252
+        self.Q1d = q1d if q1d is not None else fine.degree + 1 + qextra
         self.Q3 = self.Q1d ** 3
         self.nelem = fine.conn.shape[0]
         self.levels: list[LevelOps] = []
-        for s in spaces:
+        for i, s in enumerate(spaces):
             lvl = LevelOps(
                 space=s,
-                restr=Restriction(s.conn, s.num_nodes,
-                                  node_ranges=s.entity_node_ranges(),
-                                  device=self.device),
+                restr=(share.levels[i].restr if share is not None else
+                       Restriction(s.conn, s.num_nodes,
+                                   node_ranges=s.entity_node_ranges(),
+                                   device=self.device)),
                 basis=Basis3D.create(s.degree + 1, self.Q1d, "gauss", dtype,
                                      self.device))
-            if s.degree != fine.degree:
+            if s.degree != fine.degree and q1d is None:
                 Qn = s.degree + 1 + qextra
                 lvl.nat_basis = Basis3D.create(s.degree + 1, Qn, "gauss",
                                                dtype, self.device)
@@ -92,8 +102,9 @@ class OperatorFactory:
         self.space, self.restr, self.basis = fine, self.fine.restr, self.fine.basis
         mesh = fine.mesh
         # coordinate (vertex) restriction: trilinear geometry basis 2 -> Q
-        self.coord_restr = Restriction(mesh.connectivity, mesh.num_vertices,
-                                       device=self.device)
+        self.coord_restr = (share.coord_restr if share is not None else
+                            Restriction(mesh.connectivity, mesh.num_vertices,
+                                        device=self.device))
         self.vertex_coords = torch.as_tensor(      # float64; cast per use
             np.ascontiguousarray(mesh.vertices.T), device=self.device)
 
@@ -118,11 +129,14 @@ class OperatorFactory:
                                         self.levels[level].nat_basis.Q)
         return geometry.setup_geo(cb.apply_grad(xe), cb.qweights).contiguous()
 
-    def stash_to_native(self, stash: torch.Tensor, level: int) -> torch.Tensor:
+    def stash_to_native(self, stash: torch.Tensor | None,
+                        level: int) -> torch.Tensor | None:
         """Fine-quadrature stash (9, nelem, Q3f) -> (9, nelem, Q3_level) by
         the exact fine-Gauss -> level-Gauss interpolation (gradu components
         are per-direction polynomials of degree <= p, fixed by their p+1
-        Gauss values): one matmul."""
+        Gauss values): one matmul. None (a linear model) stays None."""
+        if stash is None:
+            return None
         M = self.levels[level].stash_interp
         return (stash.reshape(-1, M.shape[0]) @ M).reshape(
             9, self.nelem, M.shape[1])
@@ -133,35 +147,42 @@ class OperatorFactory:
         return cb.apply_interp(xe)
 
     # ------------------------------------------------------------------
-    def make_residual_structured(self, phys) -> Callable:
-        """hyperFS: u (3, nnodes), qdata -> (residual L-vector, stash)."""
+    def make_residual_structured(self, physics, phys) -> Callable:
+        """u (3, nnodes), qdata -> (residual L-vector, stash or None) of
+        `physics` (a fused_apply.PHYSICS name or Pointwise)."""
         restr, basis = self.restr, self.basis
+        pw = fused_apply.pointwise(physics)
 
         def apply(u, qdata):
-            ve, stash = fused_apply.residual(u, restr.conn, qdata, basis, phys)
+            ve, stash = fused_apply.residual(u, restr.conn, qdata, basis, phys,
+                                             pw)
             return restr.scatter_add(ve), stash
 
         return apply
 
-    def _jacobian_apply(self, phys, restr: Restriction,
+    def _jacobian_apply(self, physics, phys, restr: Restriction,
                         basis: Basis3D) -> Callable:
+        pw = fused_apply.pointwise(physics)
+
         def apply(v, qdata, stash):
-            ve = fused_apply.jacobian(v, restr.conn, qdata, stash, basis, phys)
+            ve = fused_apply.jacobian(v, restr.conn, qdata, stash, basis, phys,
+                                      pw)
             return restr.scatter_add(ve)
 
         return apply
 
-    def make_jacobian_structured(self, phys, level: int = -1) -> Callable:
-        """hyperFS: v (3, nnodes_l), fine qdata, fine stash -> J_l@v at the
-        fine quadrature (P_l -> Q_fine)."""
+    def make_jacobian_structured(self, physics, phys,
+                                 level: int = -1) -> Callable:
+        """v (3, nnodes_l), this factory's qdata, fine stash -> J_l@v at the
+        factory's quadrature (P_l -> Q_fine)."""
         lvl = self.levels[level]
-        return self._jacobian_apply(phys, lvl.restr, lvl.basis)
+        return self._jacobian_apply(physics, phys, lvl.restr, lvl.basis)
 
-    def make_jacobian_native(self, phys, level: int) -> Callable:
-        """hyperFS: v (3, nnodes_l), qdata_nat, stash_nat -> J_l@v with the
-        level integrated at its own quadrature (see LevelOps)."""
+    def make_jacobian_native(self, physics, phys, level: int) -> Callable:
+        """v (3, nnodes_l), qdata_nat, stash_nat -> J_l@v with the level
+        integrated at its own quadrature (see LevelOps)."""
         lvl = self.levels[level]
-        return self._jacobian_apply(phys, lvl.restr, lvl.nat_basis)
+        return self._jacobian_apply(physics, phys, lvl.restr, lvl.nat_basis)
 
     def make_energy(self, energy_qf: Callable, phys) -> Callable:
         """u -> total strain energy (0-dim float64 tensor).
@@ -232,7 +253,7 @@ class OperatorFactory:
 
         def apply(qdata, stash):
             nelem, Q3 = qdata.shape[1], qdata.shape[2]
-            st = Mat3(stash.unbind(0))
+            st = None if stash is None else Mat3(stash.unbind(0))
             diag_e = torch.zeros((3, nelem, basis.P3), dtype=qdata.dtype,
                                  device=qdata.device)
             du = torch.zeros((3, 3, nelem, Q3), dtype=qdata.dtype,

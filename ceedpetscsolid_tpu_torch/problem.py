@@ -1,13 +1,17 @@
 """Problem orchestration: the framework's `main` (reference elasticity.c:45-924).
-Port of ceedpetscsolid_tpu/problem.py for the hyperFS model on box meshes.
+Port of ceedpetscsolid_tpu/problem.py for the four models on box meshes.
 
 Wires box mesh -> FE spaces (one per p-multigrid level) -> operators ->
 BCs -> forcing -> Newton with CG preconditioned by Jacobi
-(`multigrid="none"`) or by the p-multigrid V-cycle with Chebyshev-Jacobi
-smoothers and a Chebyshev coarse solve, and exposes solve /
-postprocessing entry points. Every residual, every CG matvec and every
-level J.v goes through the fused element apply (ops/fused_apply.py), which
-on a CUDA device is the hand-written kernel.
+(`multigrid="none"`), by the p-multigrid V-cycle with Chebyshev-Jacobi
+smoothers and the AMG coarse solve (the default) or a Chebyshev one, or, at
+degree 1 under a multigrid schedule, by the AMG V-cycle alone (PCGAMG), and
+exposes solve / postprocessing entry points. Every residual, every CG
+matvec, every level J.v and the AMG's level-0 matvec go through the fused
+element apply (ops/fused_apply.py), which on a CUDA device is the
+hand-written kernel. hyperFSIncomp is a composite operator: its deviatoric
+mu part at full quadrature plus its pressure part at one point per element,
+each with its own stash.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ from .mesh.fespace import FESpace, build_fespace
 from .models import Physics, get_model, mms
 from .models.boundary import BoundaryConditions
 from .models.forcing import assemble_forcing
-from .ops.fused_apply import MAX_Q
+from .ops.assembly import CSRAssembler, make_element_matrices
+from .ops.fused_apply import MAX_Q, PHYSICS
 from .ops.operator import OperatorFactory
+from .solve.amg import AMGPreconditioner
 from .solve.cg import estimate_extreme_eigs, pcg
 from .solve.newton import NewtonOptions, NewtonResult, newton_solve
 from .solve.pmg import MGLevel, make_vcycle
@@ -97,11 +103,12 @@ class Config:
     ksp_max_it: int = 10_000
     ksp_monitor: bool = False                   # -ksp_monitor
     smooth_its: int = 3                         # PCMGSetNumberSmooth(3)
-    coarse_solve: str = "amg"                   # amg (not ported) | chebyshev
+    coarse_solve: str = "amg"                   # amg (GAMG analog) | chebyshev
     coarse_cheb_its: int = 30                   # Chebyshev coarse solve
-    # rebuild the level diagonals and Chebyshev bounds every pc_lag Newton
-    # iterations (1 = the reference's per-Jacobian cadence,
-    # misc.c:151-183); CG always applies the fresh Jacobian
+    # rebuild the level diagonals, Chebyshev bounds and AMG values every
+    # pc_lag Newton iterations (1 = the reference's per-Jacobian cadence,
+    # misc.c:151-183; a linear model builds them once a solve); CG always
+    # applies the fresh Jacobian
     pc_lag: int = 1
     newton: NewtonOptions = field(default_factory=NewtonOptions)
     # None: CUDA when available, else the CPU; dtype None: per default_dtype
@@ -124,12 +131,6 @@ class Config:
                 f"unknown level_quadrature {self.level_quadrature!r}")
         if self.coarse_solve not in ("amg", "chebyshev"):
             raise ValueError(f"unknown coarse solve {self.coarse_solve!r}")
-        if self.multigrid != "none" and self.coarse_solve == "amg":
-            raise NotImplementedError(
-                f"-coarse_pc_type {self.coarse_solve}: the AMG coarse solve "
-                "is not ported to ceedpetscsolid_tpu_torch yet; use "
-                "-coarse_pc_type chebyshev (matrix-free p = 1 Chebyshev) or "
-                "-multigrid none")
         if self.mesh_file:
             raise NotImplementedError(
                 f"-mesh {self.mesh_file}: Exodus-II meshes are not ported to "
@@ -143,6 +144,12 @@ class Config:
                 f"-qextra {self.qextra} at -degree {self.degree}: the CUDA "
                 f"fused apply is instantiated for Q <= {MAX_Q} quadrature "
                 f"points per direction, not Q = {q1d}")
+        if (self.problem == "hyperFSIncomp" and self.qextra
+                and self.device.type == "cuda"):
+            raise NotImplementedError(
+                f"-qextra {self.qextra} with -problem hyperFSIncomp: the CUDA "
+                "fused apply has its pressure term at Q = 1 only, not "
+                f"Q = {1 + self.qextra}")
 
     @property
     def pascal(self) -> float:
@@ -160,6 +167,14 @@ class Config:
         if self.multigrid == "none":
             return [p]
         raise ValueError(f"unknown multigrid type {self.multigrid!r}")
+
+
+def _flatwrap(apply_cm):
+    """Adapt a component-major (3, nn) -> (3, nn) operator apply to the flat
+    node-major (3 nn,) vectors the AMG cycle works on."""
+    def fn(xf):
+        return apply_cm(xf.reshape(-1, 3).T.contiguous()).T.reshape(-1)
+    return fn
 
 
 class ElasticityProblem:
@@ -225,18 +240,37 @@ class ElasticityProblem:
             self.F = torch.where(self.bc_mask, 0.0, F)
 
             nlev = len(self.spaces)
-            self._res = self.factory.make_residual_structured(self.phys)
+            pw = PHYSICS[self.model.name]
+            self._res = self.factory.make_residual_structured(pw, self.phys)
             self._jac_lvls = [self.factory.make_jacobian_structured(
-                self.phys, level=l) for l in range(nlev)]
-            self._jac = self._jac_lvls[-1]
+                pw, self.phys, level=l) for l in range(nlev)]
+            self.composite = bool(getattr(self.model, "composite", False))
+            if self.composite:
+                # reduced-integration pressure operator (hyperFSIncomp): its
+                # own P -> 1 basis and Q = 1 qdata on every level, the
+                # restrictions shared (src/setuplibceed.c:404-506)
+                self.pfactory = OperatorFactory(
+                    self.spaces, qextra=config.qextra, dtype=self.dtype,
+                    device=self.device, q1d=1 + config.qextra,
+                    share=self.factory)
+                self.qdata_p = self.pfactory.compute_qdata()
+                pwp = PHYSICS[self.model.pressure_name]
+                self._res_p = self.pfactory.make_residual_structured(
+                    pwp, self.phys)
+                self._jac_p = [self.pfactory.make_jacobian_structured(
+                    pwp, self.phys, level=l) for l in range(nlev)]
+                self._diag_p = [self.pfactory.make_diagonal(
+                    self.model.pressure_jacobian_qf, diag_phys, level=l)
+                    for l in range(nlev)]
             self._energy_fn = self.factory.make_energy(self.model.energy_qf,
                                                        self.phys)
             # native-quadrature preconditioner levels (all but the fine one)
             self._use_native_levels = (config.level_quadrature == "native"
                                        and nlev > 1)
             nat = range(nlev - 1) if self._use_native_levels else ()
-            self._jac_nat = [self.factory.make_jacobian_native(self.phys, l)
-                             for l in nat]
+            self._jac_nat = [
+                self.factory.make_jacobian_native(pw, self.phys, l)
+                for l in nat]
             self._qdata_nat = [self.factory.compute_qdata_native(l)
                                for l in nat]
             self._diag_fns = [
@@ -249,9 +283,39 @@ class ElasticityProblem:
                 self._transfers = [None] + [
                     self.factory.make_prolongation(l - 1, l)
                     for l in range(1, nlev)]
+            # the AMG: the p-MG coarse solve, or at degree 1 under a
+            # multigrid schedule the whole preconditioner (PCGAMG,
+            # elasticity.c:519-521)
+            self._use_amg = (config.coarse_solve == "amg"
+                             and config.multigrid != "none")
+            if self._use_amg:
+                self._setup_amg()
         self.setup_time = time.perf_counter() - t0
         self._pc_time = 0.0
         self._pc_cache = None
+        self.pc_setups = 0          # preconditioner builds in the last solve
+        self.cg_exits = {}          # CGResult.reason -> count, last solve
+
+    def _setup_amg(self):
+        """Analytic p = 1 element matrices (at the native level-0 quadrature
+        when native levels are on), the fixed-pattern CSR assembler of the
+        p = 1 space, and the AMG over them (level 0 matrix-free)."""
+        lvl0 = self.factory.levels[0]
+        basis0 = lvl0.nat_basis if self._nat_level(0) else lvl0.basis
+        self._em_mu = make_element_matrices(self.model.jacobian_qf, self.phys,
+                                            basis0, self.dtype)
+        if self.composite:
+            self._em_p = make_element_matrices(
+                self.model.pressure_jacobian_qf, self.phys,
+                self.pfactory.levels[0].basis, self.dtype)
+        s0 = self.spaces[0]
+        self._assembler0 = CSRAssembler(
+            s0.conn, s0.num_nodes, self._level_mask(s0).cpu().numpy(),
+            device=self.device)
+        self._amg = AMGPreconditioner(self.dtype, self.device, top_mf=True)
+        # seconds of the AMG refreshes in the last solve (inside pc_time)
+        self.amg_times = dict.fromkeys(("elem_mats", "d2h", "setup",
+                                        "upload"), 0.0)
 
     # ------------------------------------------------------------------
     def bc_values(self, load_increment: float) -> torch.Tensor:
@@ -279,15 +343,35 @@ class ElasticityProblem:
     def _nat_level(self, l: int) -> bool:
         return self._use_native_levels and l < len(self.spaces) - 1
 
+    def _mu(self, stash):
+        """The full-quadrature stash (the mu part's of a composite pair)."""
+        return stash[0] if self.composite else stash
+
+    def _raw_residual(self, u):
+        """Unmasked residual L-vector and stash; a composite model's stash
+        is the (mu, pressure) pair."""
+        r, stash = self._res(u, self.qdata)
+        if self.composite:
+            rp, stash_p = self._res_p(u, self.qdata_p)
+            return r + rp, (stash, stash_p)
+        return r, stash
+
+    def _raw_jacobian(self, v, stash, level=-1):
+        """Unmasked J_l v at the fine quadrature (plus the pressure term)."""
+        jv = self._jac_lvls[level](v, self.qdata, self._mu(stash))
+        if self.composite:
+            jv = jv + self._jac_p[level](v, self.qdata_p, stash[1])
+        return jv
+
     def _nonlinear_residual(self, u, bc_vals, F):
         """G(u) = R(u with BCs inserted) - F, zeroed at constrained DOFs
         (FormResidual_Ceed, matops.c:63-79). Returns (G, stash)."""
-        r, stash = self._res(self.insert_bc(u, bc_vals), self.qdata)
+        r, stash = self._raw_residual(self.insert_bc(u, bc_vals))
         return torch.where(self.bc_mask, 0.0, r - F), stash
 
     def _jacobian_action(self, v, stash):
         """Zero-BC linearized action (ApplyJacobian_Ceed, matops.c:98-112)."""
-        jv = self._jac(torch.where(self.bc_mask, 0.0, v), self.qdata, stash)
+        jv = self._raw_jacobian(torch.where(self.bc_mask, 0.0, v), stash)
         return torch.where(self.bc_mask, 0.0, jv)
 
     # ------------------------------------------------------------------
@@ -295,32 +379,41 @@ class ElasticityProblem:
     # ------------------------------------------------------------------
     def build_mg_levels(self, stash) -> tuple[list[MGLevel], list]:
         """The V-cycle's levels for one Jacobian, and the native-level
-        stashes, interpolated here once per Jacobian (not per apply)."""
+        stashes, interpolated here once per Jacobian (not per apply). A
+        composite model's native levels interpolate the mu stash only; its
+        pressure term rides on its Q = 1 level path."""
         nlev = len(self.spaces)
-        stash_nats = [self.factory.stash_to_native(stash, l)
+        stash_nats = [self.factory.stash_to_native(self._mu(stash), l)
                       if self._nat_level(l) else None for l in range(nlev)]
         levels = []
         for l in range(nlev):
             lm = self._level_masks[l]
             if self._nat_level(l):
-                def apply(v, stash_, jac=self._jac_nat[l], lm=lm,
-                          qd=self._qdata_nat[l], sn=stash_nats[l]):
-                    return torch.where(lm, 0.0,
-                                       jac(torch.where(lm, 0.0, v), qd, sn))
+                def apply(v, stash_, l=l, lm=lm, sn=stash_nats[l]):
+                    vm = torch.where(lm, 0.0, v)
+                    jv = self._jac_nat[l](vm, self._qdata_nat[l], sn)
+                    if self.composite:
+                        jv = jv + self._jac_p[l](vm, self.qdata_p, stash_[1])
+                    return torch.where(lm, 0.0, jv)
             else:
-                def apply(v, stash_, jac=self._jac_lvls[l], lm=lm):
-                    return torch.where(lm, 0.0, jac(torch.where(lm, 0.0, v),
-                                                    self.qdata, stash_))
+                def apply(v, stash_, l=l, lm=lm):
+                    jv = self._raw_jacobian(torch.where(lm, 0.0, v), stash_, l)
+                    return torch.where(lm, 0.0, jv)
             pro, res = self._transfers[l] or (None, None)
             levels.append(MGLevel(apply=apply, mask=lm, prolong=pro,
                                   restrict=res))
         return levels, stash_nats
 
     def level_diag(self, l: int, stash, stash_nats) -> torch.Tensor:
-        """Assembled diagonal of level l's operator (unmasked)."""
+        """Assembled diagonal of level l's operator (unmasked), the
+        pressure term's added for a composite model."""
         if self._nat_level(l):
-            return self._diag_fns[l](self._qdata_nat[l], stash_nats[l])
-        return self._diag_fns[l](self.qdata, stash)
+            d = self._diag_fns[l](self._qdata_nat[l], stash_nats[l])
+        else:
+            d = self._diag_fns[l](self.qdata, self._mu(stash))
+        if self.composite:
+            d = d + self._diag_p[l](self.qdata_p, stash[1])
+        return d
 
     def mg_setup(self, stash, levels, stash_nats):
         """Per-level inverse diagonals + Chebyshev bounds: the
@@ -336,15 +429,68 @@ class ElasticityProblem:
                 d.dtype))
         return diag_invs, bounds
 
+    def _amg_apply(self, b, data, top_mv):
+        """(3, nn0) residual -> one AMG V-cycle (node-major flat inside);
+        top_mv is the flat level-0 matvec (see AMGPreconditioner.apply)."""
+        xf = self._amg.apply(b.T.reshape(-1), data, top_matvec=top_mv)
+        return xf.reshape(-1, 3).T.contiguous()
+
+    def p1_values(self, stash, stash_nats=None) -> torch.Tensor:
+        """(nnz,) float64 values of the assembled p = 1 matrix (before its
+        BC masks), on the device: element matrices in the solve dtype (the
+        mu part at the native level-0 quadrature when native levels are on,
+        plus the pressure part), then the fixed-order slot reduction."""
+        if self._nat_level(0):
+            sn = (stash_nats[0] if stash_nats is not None else
+                  self.factory.stash_to_native(self._mu(stash), 0))
+            em = self._em_mu(self._qdata_nat[0], sn)
+        else:
+            em = self._em_mu(self.qdata, self._mu(stash))
+        if self.composite:
+            em = em + self._em_p(self.qdata_p, stash[1])
+        return self._assembler0.assemble_values(em).to(torch.float64)
+
+    def refresh_amg(self, stash, stash_nats=None):
+        """FormJacobian analog (misc.c:151-183): the p = 1 values on the
+        device (p1_values), the (nnz,) float64 vector to the host, the
+        native AMG setup (values only after the first), the levels back to
+        the device. Accumulates the four parts' seconds in amg_times."""
+        t0 = time.perf_counter()
+        vals = self.p1_values(stash, stash_nats)
+        sync(self.device)
+        t1 = time.perf_counter()
+        host = vals.cpu().numpy()
+        t2 = time.perf_counter()
+        self._amg.setup(self._assembler0.from_values(host))
+        t3 = time.perf_counter()
+        up = self._amg.last_times["upload"]
+        for k, t in (("elem_mats", t1 - t0), ("d2h", t2 - t1),
+                     ("setup", t3 - t2 - up), ("upload", up)):
+            self.amg_times[k] += t
+
     def linear_solve_mg(self, G, stash, levels, pc, rtol):
-        """p-MG-preconditioned CG for J d = -G; pc = (diag_invs, bounds)."""
+        """p-MG-preconditioned CG for J d = -G; pc = (diag_invs, bounds).
+        The coarse solve is one AMG V-cycle whose level 0 is the p-MG
+        level-0 apply (node-major <-> component-major through _flatwrap),
+        or the Chebyshev polynomial."""
         cfg = self.config
         diag_invs, bounds = pc
+        coarse_apply = coarse_data = None
+        if self._use_amg:
+            top_mv = _flatwrap(lambda v: levels[0].apply(v, stash))
+
+            def coarse_apply(b0, cd):
+                return self._amg_apply(b0, cd, top_mv)
+
+            coarse_data = self._amg.data
         vcycle = make_vcycle(levels, smooth_its=cfg.smooth_its,
-                             coarse_cheb_its=cfg.coarse_cheb_its)
+                             coarse_cheb_its=cfg.coarse_cheb_its,
+                             coarse_apply=coarse_apply)
         res = pcg(lambda v: levels[-1].apply(v, stash), -G,
-                  M_inv=lambda r: vcycle(r, stash, diag_invs, bounds),
+                  M_inv=lambda r: vcycle(r, stash, diag_invs, bounds,
+                                         coarse_data),
                   rtol=rtol, maxiter=cfg.ksp_max_it, monitor=cfg.ksp_monitor)
+        self.cg_exits[res.reason] = self.cg_exits.get(res.reason, 0) + 1
         return res.x, res.iters
 
     # ------------------------------------------------------------------
@@ -355,26 +501,45 @@ class ElasticityProblem:
         return 1.0 / d
 
     def _linear_solve(self, G, stash, refresh=True, rtol=None):
-        """J d = -G by Jacobi CG (elasticity.c:515-518) or p-MG CG. The
-        preconditioner data is rebuilt once per Jacobian, or reused when
-        refresh is False (the pc_lag cadence)."""
+        """J d = -G by Jacobi CG (elasticity.c:515-518), p-MG CG, or AMG CG
+        at degree 1 (elasticity.c:519-521). The preconditioner data is
+        rebuilt once per Jacobian, reused when refresh is False (the pc_lag
+        cadence), and built once a solve for a linear model, whose Jacobian
+        never changes (the JAX package's cache, problem.py:404-406,
+        610-611)."""
         cfg = self.config
         rtol = cfg.ksp_rtol if rtol is None else rtol
         t0 = time.perf_counter()
         levels = stash_nats = None
         if self._use_mg:
             levels, stash_nats = self.build_mg_levels(stash)
-        if refresh or self._pc_cache is None:
-            self._pc_cache = (self.mg_setup(stash, levels, stash_nats)
-                              if self._use_mg else self._jacobi_setup(stash))
+        if self._pc_cache is None or (refresh and self.model.nonlinear):
+            self.pc_setups += 1
+            if self._use_amg:
+                self.refresh_amg(stash, stash_nats)
+            if self._use_mg:
+                self._pc_cache = self.mg_setup(stash, levels, stash_nats)
+            else:       # Jacobi; PCGAMG needs only the AMG data
+                self._pc_cache = (() if self._use_amg
+                                  else self._jacobi_setup(stash))
         sync(self.device)
         self._pc_time += time.perf_counter() - t0
         if self._use_mg:
             return self.linear_solve_mg(G, stash, levels, self._pc_cache, rtol)
-        diag_inv = self._pc_cache
-        res = pcg(lambda v: self._jacobian_action(v, stash), -G,
-                  M_inv=lambda r: diag_inv * r, rtol=rtol,
-                  maxiter=cfg.ksp_max_it, monitor=cfg.ksp_monitor)
+        if self._use_amg:
+            top_mv = _flatwrap(lambda v: self._jacobian_action(v, stash))
+
+            def M_inv(r):
+                return torch.where(self.bc_mask, 0.0,
+                                   self._amg_apply(r, self._amg.data, top_mv))
+        else:
+            diag_inv = self._pc_cache
+
+            def M_inv(r):
+                return diag_inv * r
+        res = pcg(lambda v: self._jacobian_action(v, stash), -G, M_inv=M_inv,
+                  rtol=rtol, maxiter=cfg.ksp_max_it, monitor=cfg.ksp_monitor)
+        self.cg_exits[res.reason] = self.cg_exits.get(res.reason, 0) + 1
         return res.x, res.iters
 
     # ------------------------------------------------------------------
@@ -391,6 +556,10 @@ class ElasticityProblem:
         rnorm = 0.0
         self._pc_time = 0.0
         self._pc_cache = None
+        self.pc_setups = 0
+        self.cg_exits = {}
+        if self._use_amg:
+            self.amg_times = dict.fromkeys(self.amg_times, 0.0)
         t0 = time.perf_counter()
         last = None
         load_done = 0.0
@@ -423,7 +592,14 @@ class ElasticityProblem:
             fails = 0
             while load_done < target - 1e-12:
                 load = min(target, load_done + delta)
-                res: NewtonResult = run_newton(load, u)
+                try:
+                    res: NewtonResult = run_newton(load, u)
+                except FloatingPointError:
+                    # non-finite data reached the host-side AMG coarse
+                    # factorization: a diverged increment, as in the JAX
+                    # package
+                    res = NewtonResult(u, 0, 0, float("nan"), False,
+                                       "diverged (non-finite)")
                 total_snes += res.iters
                 total_ksp += res.linear_iters
                 rnorm = res.rnorm
@@ -485,8 +661,8 @@ class SolveInfo:
     reason: str
     solve_time: float
     dofs: int
-    # preconditioner setups (diagonals, Chebyshev bounds, native stashes),
-    # inside solve_time
+    # preconditioner setups (diagonals, Chebyshev bounds, native stashes,
+    # AMG refreshes), inside solve_time
     pc_time: float = 0.0
 
     @property

@@ -25,6 +25,8 @@ class CGResult(NamedTuple):
     iters: int
     rnorm: float                # final natural norm
     converged: bool
+    # converged | indefinite (p.Ap <= 0) | stalled | max_it
+    reason: str = "converged"
 
 
 def pcg(
@@ -91,7 +93,10 @@ def pcg(
     # `(it == 0) & ~ok`, which never holds (`it` counts the bailed
     # iteration), so a first-iteration bail returns x = 0 there; the port
     # keeps that behaviour for parity.
-    return CGResult(x=x, iters=it, rnorm=rn, converged=ok and rn <= tol)
+    reason = ("indefinite" if not ok else "converged" if rn <= tol else
+              "stalled" if since >= stall_its else "max_it")
+    return CGResult(x=x, iters=it, rnorm=rn, converged=ok and rn <= tol,
+                    reason=reason)
 
 
 def chebyshev(

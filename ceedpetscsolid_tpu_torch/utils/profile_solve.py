@@ -1,12 +1,14 @@
 """Device profile of the hyperFS degree-4 solve: Jacobi CG against p-MG CG.
 
     python -m ceedpetscsolid_tpu_torch.utils.profile_solve [--box 16]
-        [--out DIR]
+        [--coarse chebyshev|amg|both] [--out DIR]
 
-The problem is chip_smoke.py's phases 6 and 7: hyperFS degree 4 on a
+The problem is chip_smoke.py's phases 6, 7 and 11: hyperFS degree 4 on a
 box^3 box, -test, one increment, float32, ksp_rtol 1e-6; p-MG with
-logarithmic levels, native level quadrature and the Chebyshev coarse
-solve. For each preconditioner it runs one solve to warm up (kernel build,
+logarithmic levels, native level quadrature and the Chebyshev coarse solve
+(--coarse chebyshev, the default), the AMG coarse solve (--coarse amg; its
+refresh split is printed too), or both. For each preconditioner it runs
+one solve to warm up (kernel build,
 allocator), one solve without the profiler (the wall clock the busy share
 is taken against) and one under torch.profiler. It prints, per solve: the
 device kernels launched, their summed device time, the busy share (device
@@ -32,15 +34,20 @@ TOP = 8
 
 
 def make_problem(box: int, multigrid: str, device, dtype=torch.float32,
-                 level_quadrature="native") -> ElasticityProblem:
-    """One -test hyperFS degree-4 increment on a box^3 box (chip_smoke.py's
-    phases 6-8 and this profile), with the Chebyshev coarse solve."""
-    f32 = dtype == torch.float32
-    cfg = Config(problem="hyperFS", degree=4, nu=0.3, E=1.0, test_mode=True,
-                 box_faces=(box,) * 3, multigrid=multigrid,
-                 coarse_solve="chebyshev", level_quadrature=level_quadrature,
-                 num_increments=1, device=device, dtype=dtype,
-                 ksp_rtol=1e-6 if f32 else 1e-10)
+                 level_quadrature="native", coarse_solve="chebyshev",
+                 problem="hyperFS", degree=4,
+                 f32_tolerances=None) -> ElasticityProblem:
+    """One -test increment on a box^3 box (chip_smoke.py's solves and this
+    profile): hyperFS degree 4 with the Chebyshev coarse solve unless told
+    otherwise. Tolerances: the CLI's float32 ones (ksp and Newton rtol
+    1e-6) when f32_tolerances, else 1e-10 (None: by the dtype)."""
+    f32 = (dtype == torch.float32 if f32_tolerances is None
+           else f32_tolerances)
+    cfg = Config(problem=problem, degree=degree, nu=0.3, E=1.0,
+                 test_mode=True, box_faces=(box,) * 3, multigrid=multigrid,
+                 coarse_solve=coarse_solve,
+                 level_quadrature=level_quadrature, num_increments=1,
+                 device=device, dtype=dtype, ksp_rtol=1e-6 if f32 else 1e-10)
     if f32:
         cfg.newton.rtol = 1e-6              # the CLI's float32 policy
     return ElasticityProblem(cfg)
@@ -60,6 +67,9 @@ def profile(prob: ElasticityProblem) -> dict:
     info = prob.solve()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the unprofiled solve's AMG refresh split (element matrices, d2h,
+    # native setup, upload)
+    amg = dict(prob.amg_times) if prob._use_amg else None
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -81,7 +91,7 @@ def profile(prob: ElasticityProblem) -> dict:
                 if avgs and hasattr(avgs[0], "self_device_time_total")
                 else "self_cuda_time_total")
     return {
-        "snes": info.snes_iters, "ksp": info.ksp_iters,
+        "snes": info.snes_iters, "ksp": info.ksp_iters, "amg_refresh_s": amg,
         "solve_s": wall, "pc_setup_s": info.pc_time,
         "profiled_solve_s": wall_prof,
         "kernel_launches": len(kernels), "copies": len(copies),
@@ -98,6 +108,9 @@ def profile(prob: ElasticityProblem) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--box", type=int, default=16)
+    ap.add_argument("--coarse", choices=("chebyshev", "amg", "both"),
+                    default="chebyshev",
+                    help="coarse solve of the p-MG preconditioner")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -105,8 +118,13 @@ def main(argv=None) -> int:
         return 2
     dev = select_device("cuda")
     summary = {}
-    for tag, mg in (("jacobi", "none"), ("pmg", "logarithmic")):
-        r = profile(make_problem(args.box, mg, dev))
+    runs = [("jacobi", "none", "chebyshev")]
+    if args.coarse in ("chebyshev", "both"):
+        runs.append(("pmg", "logarithmic", "chebyshev"))
+    if args.coarse in ("amg", "both"):
+        runs.append(("pmg_amg", "logarithmic", "amg"))
+    for tag, mg, coarse in runs:
+        r = profile(make_problem(args.box, mg, dev, coarse_solve=coarse))
         table = r.pop("table")
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
@@ -115,6 +133,8 @@ def main(argv=None) -> int:
               f"KSP {r['ksp']}, solve {r['solve_s']:.4f} s (pc setup "
               f"{r['pc_setup_s']:.4f} s; profiled {r['profiled_solve_s']:.4f}"
               f" s)")
+        if r["amg_refresh_s"]:
+            print(f"    AMG refresh split, s: {r['amg_refresh_s']}")
         print(f"    {r['kernel_launches']} kernel launches "
               f"({r['launches_per_ksp']:.1f} per CG iteration), "
               f"{r['copies']} copies/memsets, device time {r['device_ms']:.3f}"

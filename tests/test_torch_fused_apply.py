@@ -1,8 +1,10 @@
-"""The fused element apply (gather -> B -> hyperFS -> B^T -> owner-sum).
+"""The fused element apply (gather -> B -> physics -> B^T -> owner-sum).
 
 CPU: the port's plain version against
   * the JAX XLA structured path in float64 at rtol 1e-12 (same data through
-    interop, only summation order differs);
+    interop, only summation order differs), for hyperFS and, parametrised,
+    for linElas, hyperSS, hyperFSIncomp's mu part and its pressure part
+    through the Q = 1 pressure factory;
   * the JAX Pallas kernel in interpret mode in float32 at the tolerances of
     tests/test_pallas_apply.py (rtol 2e-5, atol 1e-8; stash atol 1e-7), on
     the box and on the scrambled mesh (orientation-masked class rows).
@@ -35,9 +37,9 @@ def _inputs(N, seed):
             rng.standard_normal((3, N)) * 1e-3)
 
 
-def _port_apply(tf, qdata, u, v, stash_for_jac):
-    res = tf.make_residual_structured(TPHYS)
-    jac = tf.make_jacobian_structured(TPHYS)
+def _port_apply(tf, qdata, u, v, stash_for_jac, physics="hyperFS"):
+    res = tf.make_residual_structured(physics, TPHYS)
+    jac = tf.make_jacobian_structured(physics, TPHYS)
     r, stash = res(u, qdata)
     return r, stash, jac(v, qdata, stash_for_jac)
 
@@ -61,6 +63,49 @@ def test_plain_matches_jax_xla_f64(kind, n, degree):
     tr, tst, tjv = _port_apply(tf, tq, interop.u_from_jax(u),
                                interop.u_from_jax(v), jst_t)
     for got, ref in ((tr, jr), (tst, jst_t), (tjv, jjv)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12,
+                                   atol=1e-14 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("physics", ["linElas", "hyperSS", "hyperFSIncomp",
+                                     "hyperFSIncomp-pressure"])
+@pytest.mark.parametrize("kind,n,degree", [("box", 3, 2), ("scrambled", 2, 3)])
+def test_physics_plain_matches_jax_xla_f64(physics, kind, n, degree):
+    """The other physics, residual L-vector, stash and J.v, port plain vs
+    JAX XLA at rtol 1e-12; the pressure part through both packages' Q = 1
+    factories (q1d=1). linElas has no stash in either."""
+    from ceedpetscsolid_tpu_torch.models import get_model as tget_model
+
+    jm, tm = mesh_pair(kind, n)
+    pressure = physics.endswith("-pressure")
+    q1d = 1 if pressure else None
+    jf = JFactory([jbuild(jm, degree)], dtype=jnp.float64, use_pallas=False,
+                  use_spectral=False, q1d=q1d)
+    tf = TFactory(tbuild(tm, degree), dtype=torch.float64, q1d=q1d)
+    model = tget_model(physics.removesuffix("-pressure"))
+    pre = "pressure_" if pressure else ""
+    from ceedpetscsolid_tpu.models import get_model as jget_model
+
+    jmod = jget_model(model.name)
+    jq = jf.compute_qdata()
+    u, v = _inputs(jf.fine.space.num_nodes, 5)
+    u = u * 5                                   # strains ~1e-2
+    jr, jst = jf.make_residual_structured(
+        getattr(jmod, pre + "residual_planes"), JPHYS)(
+        jnp.asarray(u), jq, jf.fine.srestr, jf.fine.sgrad)
+    jjv = jf.make_jacobian_structured(
+        getattr(jmod, pre + "jacobian_planes"), JPHYS)(
+        jnp.asarray(v), jq, jst, jf.fine.srestr, jf.fine.sgrad)
+    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3)
+    assert (jst is None) == (physics == "linElas")
+    jst_t = None if jst is None else interop.stash_from_jax(jst, tf.nelem,
+                                                            tf.Q3)
+    tr, tst, tjv = _port_apply(tf, tq, interop.u_from_jax(u),
+                               interop.u_from_jax(v), jst_t, physics)
+    assert (tst is None) == (jst is None)
+    pairs = [(tr, jr), (tjv, jjv)] + ([] if jst is None else [(tst, jst_t)])
+    for got, ref in pairs:
         ref = np.asarray(ref)
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12,
                                    atol=1e-14 * np.abs(ref).max())
@@ -146,3 +191,17 @@ def test_kernel_input_checks():
         fused_apply._check(u, tf5.restr.conn, tf5.compute_qdata(), tf5.basis,
                            torch.zeros((9, tf5.nelem, tf5.Q3),
                                        dtype=torch.float64))
+    # linElas takes no stash; the pressure term has (P, 1) only
+    fused_apply._check(u, conn, q, b, None, "linElas")
+    with pytest.raises(ValueError, match="no stash"):
+        fused_apply._check(u, conn, q, b, st, "linElas")
+    with pytest.raises(ValueError, match="stash is missing"):
+        fused_apply._check(u, conn, q, b, None, "hyperSS")
+    with pytest.raises(NotImplementedError, match="no instance for P=3, Q=3"):
+        fused_apply._check(u, conn, q, b, st, "hyperFSIncomp-pressure")
+    tp = TFactory(tbuild(tm, 2), dtype=torch.float64, q1d=1)
+    fused_apply._check(u, tp.restr.conn, tp.compute_qdata(), tp.basis,
+                       torch.zeros((9, tp.nelem, 1), dtype=torch.float64),
+                       "hyperFSIncomp-pressure")
+    with pytest.raises(ValueError, match="no physics"):
+        fused_apply.pointwise("neoHooke")

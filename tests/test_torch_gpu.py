@@ -34,11 +34,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(kind, degree, device, seed=0, qextra=0):
+def _case(kind, degree, device, seed=0, qextra=0, q1d=None):
     mesh = box_mesh((3, 3, 3)) if kind == "box" else scrambled_box_mesh(
         (3, 3, 3), seed=3)
     f = OperatorFactory(build_fespace(mesh, degree), qextra=qextra,
-                        dtype=torch.float64, device=device)
+                        dtype=torch.float64, device=device, q1d=q1d)
     rng = np.random.default_rng(seed)
     u, v = (torch.as_tensor(rng.standard_normal((3, f.space.num_nodes)) * 1e-3,
                             device=device) for _ in range(2))
@@ -72,6 +72,50 @@ def test_kernel_matches_plain(cuda, kind, degree, qextra):
         assert bool((err <= 2e-5 * ref.abs() + 1e-6 * ref.abs().max()).all())
 
 
+def _check_physics(f, q, u, v, physics, device):
+    """Kernel vs plain for one physics at the tolerances of
+    test_kernel_matches_plain; a physics without a stash has none."""
+    conn, b = f.restr.conn, f.basis
+    ve0, st0 = fa.residual_plain(u, conn, q, b, PHYS, physics)
+    jv0 = fa.jacobian_plain(v, conn, q, st0, b, PHYS, physics)
+    ve, st = fa.residual(u, conn, q, b, PHYS, physics)
+    jv = fa.jacobian(v, conn, q, st0, b, PHYS, physics)
+    assert (st is None) == (st0 is None) == (physics == "linElas")
+    pairs = [(ve, ve0), (jv, jv0)] + ([(st, st0)] if st0 is not None else [])
+    for got, ref in pairs:
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
+    f32 = torch.float32
+    b32 = Basis3D.create(b.P, b.Q, "gauss", f32, device)
+    st32 = None if st0 is None else st0.to(f32)
+    ve, st = fa.residual(u.to(f32), conn, q.to(f32), b32, PHYS, physics)
+    jv = fa.jacobian(v.to(f32), conn, q.to(f32), st32, b32, PHYS, physics)
+    pairs = [(ve, ve0), (jv, jv0)] + ([(st, st0)] if st0 is not None else [])
+    for got, ref in pairs:
+        err = (got.double() - ref).abs()
+        assert bool((err <= 2e-5 * ref.abs() + 1e-6 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("physics", ["linElas", "hyperSS", "hyperFSIncomp"])
+@pytest.mark.parametrize("kind", ["box", "scrambled"])
+@pytest.mark.parametrize("degree,qextra", [(1, 0), (2, 0), (3, 0), (4, 0),
+                                           (2, 2), (4, 1)])
+def test_physics_kernels_match_plain(cuda, physics, kind, degree, qextra):
+    """The other full-quadrature physics (linElas without a stash, hyperSS,
+    hyperFSIncomp's mu part) at P = Q and P < Q, at the tolerances above."""
+    f, q, u, v = _case(kind, degree, cuda, seed=degree, qextra=qextra)
+    _check_physics(f, q, u, v, physics, cuda)
+
+
+@pytest.mark.parametrize("kind", ["box", "scrambled"])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5])
+def test_pressure_kernels_match_plain(cuda, kind, degree):
+    """hyperFSIncomp's pressure term at one point per element: the (P, 1)
+    instances, P = 2..6."""
+    f, q, u, v = _case(kind, degree, cuda, seed=degree, q1d=1)
+    assert (f.basis.P, f.basis.Q) == (degree + 1, 1)
+    _check_physics(f, q, u, v, "hyperFSIncomp-pressure", cuda)
+
+
 def test_launch_counts_and_refusals(cuda):
     f, q, u, v = _case("box", 2, cuda)
     conn, b = f.restr.conn, f.basis
@@ -87,10 +131,18 @@ def test_launch_counts_and_refusals(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         fa.residual(u, conn, q.cpu(), b, PHYS)
     assert fa.COUNTS.by_pq == {("residual", 3, 3): 1, ("jacobian", 3, 3): 2}
+    assert fa.COUNTS.by_physics == {("hyperFS", "residual", 3, 3): 1,
+                                    ("hyperFS", "jacobian", 3, 3): 2}
+    # linElas takes no stash and refuses one
+    with pytest.raises(ValueError, match="no stash"):
+        fa.jacobian(v, conn, q, st, b, PHYS, "linElas")
     # (P, Q) = (3, 7) has no instance: degree 2 at -qextra 4
     f2 = OperatorFactory(f.space, qextra=4, dtype=torch.float64, device=cuda)
     with pytest.raises(NotImplementedError, match="no instance for P=3, Q=7"):
         fa.residual(u, f2.restr.conn, f2.compute_qdata(), f2.basis, PHYS)
+    # the pressure term has (P, 1) instances only
+    with pytest.raises(NotImplementedError, match="no instance for P=3, Q=3"):
+        fa.residual(u, conn, q, b, PHYS, "hyperFSIncomp-pressure")
     assert (fa.COUNTS.residual_launches, fa.COUNTS.jacobian_launches) == (1, 2)
     with pytest.raises(NotImplementedError, match="-qextra 4"):
         Config(problem="hyperFS", degree=2, multigrid="none", qextra=4,
@@ -201,3 +253,60 @@ def test_pmg_solve_on_gpu_matches_cpu(cuda):
     assert ig.snes_iters == ic.snes_iters
     assert abs(ig.ksp_iters - ic.ksp_iters) <= 1
     assert abs(eg - ec) <= 1e-8 * ec and abs(wg - wc) <= 1e-8 * wc
+
+
+def _solve_pair(cuda, **kw):
+    """One solve on the card and on the CPU, both float64."""
+    def run(device):
+        p = ElasticityProblem(Config(device=device, dtype=torch.float64,
+                                     **kw))
+        info = p.solve()
+        return p, info, p.strain_energy(info.u)
+
+    fa.COUNTS.reset()
+    pg, ig, wg = run(cuda)
+    counts = dict(fa.COUNTS.by_physics)
+    pc, ic, wc = run("cpu")
+    assert ig.converged and ic.converged
+    assert ig.snes_iters == ic.snes_iters
+    assert abs(ig.ksp_iters - ic.ksp_iters) <= 1
+    assert abs(wg - wc) <= 1e-8 * abs(wc)
+    return pg, pc, ig, ic, counts
+
+
+def test_amg_smoke_on_gpu_matches_cpu(cuda):
+    """The reference smoke problem (linElas degree 3 on 3^3, p-MG [1, 2, 3]
+    with the AMG coarse solve) on the card in float64 against the CPU
+    float64 path: same counts, error and energy to 1e-8; the (2, 2) level-0
+    apply of the AMG cycle ran as the linElas kernel."""
+    pg, pc, ig, ic, counts = _solve_pair(
+        cuda, problem="linElas", degree=3, test_mode=True,
+        box_faces=(3, 3, 3))
+    assert ("linElas", "jacobian", 2, 2) in counts
+    eg, ec = pg.mms_error(ig.u), pc.mms_error(ic.u)
+    assert abs(eg - ec) <= 1e-8 * ec
+
+
+def test_incomp_clamp_on_gpu_matches_cpu(cuda):
+    """hyperFSIncomp's clamp solve (degree 2 on 2^3, p-MG + AMG) on the card
+    in float64 against the CPU: both terms' kernels ran, the pressure at
+    (3, 1) and (2, 1)."""
+    _, _, _, _, counts = _solve_pair(
+        cuda, problem="hyperFSIncomp", degree=2, nu=0.49, E=1e6,
+        forcing="none", box_faces=(2, 2, 2), bc_clamp=(6, 5),
+        bc_clamp_translate={5: (0.05, 0.0, 0.0)}, num_increments=1,
+        nu_smoother=0.3)
+    pressure = "hyperFSIncomp-pressure"
+    assert {(pressure, "residual", 3, 1), (pressure, "jacobian", 3, 1),
+            (pressure, "jacobian", 2, 1), ("hyperFSIncomp", "jacobian", 2, 2),
+            } <= set(counts)
+
+
+def test_pcgamg_degree1_on_gpu_matches_cpu(cuda):
+    """Degree 1 under the default schedule: CG preconditioned by the AMG
+    V-cycle alone (PCGAMG), card vs CPU in float64."""
+    _, _, ig, _, counts = _solve_pair(
+        cuda, problem="linElas", degree=1, test_mode=True,
+        box_faces=(6, 6, 6))
+    assert ig.ksp_iters <= 15
+    assert counts[("linElas", "jacobian", 2, 2)] > ig.ksp_iters

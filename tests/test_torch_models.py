@@ -1,7 +1,7 @@
-"""Model-level parity in float64: qdata, MMS forcing, the hyperFS
-pointwise physics and the Jacobi diagonal of the port against the JAX
+"""Model-level parity in float64: qdata, MMS forcing, the pointwise physics
+of every model and the Jacobi diagonal of the port against the JAX
 package, at rtol 1e-12 (same algorithm, same data; only summation order
-differs)."""
+differs); the planes of linElas, hyperSS and hyperFSIncomp at 1e-13."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,12 +10,14 @@ import torch
 
 from ceedpetscsolid_tpu.mesh.fespace import build_fespace as jbuild
 from ceedpetscsolid_tpu.models import Physics as JPhysics
+from ceedpetscsolid_tpu.models import get_model as jget_model
 from ceedpetscsolid_tpu.models import hyper_fs as jhfs
 from ceedpetscsolid_tpu.models.base import Mat3 as JMat3
 from ceedpetscsolid_tpu.models.forcing import assemble_forcing as jforcing
 from ceedpetscsolid_tpu.ops.operator import OperatorFactory as JFactory
 from ceedpetscsolid_tpu_torch import interop
 from ceedpetscsolid_tpu_torch.mesh.fespace import build_fespace as tbuild
+from ceedpetscsolid_tpu_torch.models import get_model as tget_model
 from ceedpetscsolid_tpu_torch.models import hyper_fs as thfs
 from ceedpetscsolid_tpu_torch.models.base import Mat3 as TMat3
 from ceedpetscsolid_tpu_torch.models.forcing import assemble_forcing as tforcing
@@ -96,3 +98,52 @@ def test_jacobi_diagonal(kind, n, degree):
     tstash = interop.stash_from_jax(jstash, tf.nelem, tf.Q3)
     tdiag = tf.make_diagonal(thfs.jacobian_qf, TPHYS)(tq, tstash)
     close(tdiag.numpy(), jdiag)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("name,part", [
+    ("linElas", ""), ("hyperSS", ""), ("hyperFSIncomp", ""),
+    ("hyperFSIncomp", "pressure_")])
+def test_model_planes_match_jax(name, part):
+    """Residual planes and stash, Jacobian planes and energy density from
+    the same seeded inputs (strains ~1e-2), port vs JAX, <= 1e-13 relative.
+    linElas stashes nothing and its Jacobian ignores the stash."""
+    jm, tm = jget_model(name), tget_model(name)
+    rng = np.random.default_rng(17)
+    shape = (5, 8)
+    du = rng.standard_normal((3, 3) + shape) * 1e-2
+    ddu = rng.standard_normal((3, 3) + shape)
+    qd = rng.standard_normal((10,) + shape)
+    qd[0] = np.abs(qd[0])
+    jres, tres = getattr(jm, part + "residual_qf"), getattr(tm, part + "residual_qf")
+    jjac, tjac = getattr(jm, part + "jacobian_qf"), getattr(tm, part + "jacobian_qf")
+    jdv, jg = jres(jnp.asarray(du), jnp.asarray(qd), JPHYS)
+    tdv, tg = tres(torch.as_tensor(du), torch.as_tensor(qd), TPHYS)
+    assert _rel(tdv.numpy(), jdv) <= 1e-13
+    assert (tg is None) == (jg is None) == (name == "linElas")
+    if tg is not None:
+        for a, b in zip(tg.m, jg.m):
+            assert _rel(a.numpy(), b) <= 1e-13
+    jjv = jjac(jnp.asarray(ddu), jnp.asarray(qd), jg, JPHYS)
+    tjv = tjac(torch.as_tensor(ddu), torch.as_tensor(qd), tg, TPHYS)
+    assert _rel(tjv.numpy(), jjv) <= 1e-13
+    je = jm.energy_qf(jnp.asarray(du), jnp.asarray(qd), JPHYS)
+    te = tm.energy_qf(torch.as_tensor(du), torch.as_tensor(qd), TPHYS)
+    assert _rel(te.numpy(), je) <= 1e-13
+
+
+def test_registry():
+    """Every model of the reference's -problem enum is ported; an unknown
+    name is refused naming the choices."""
+    from ceedpetscsolid_tpu_torch.models import REGISTRY
+
+    assert sorted(REGISTRY) == ["hyperFS", "hyperFSIncomp", "hyperSS",
+                                "linElas"]
+    for name, mod in REGISTRY.items():
+        assert mod.name == name
+    with pytest.raises(ValueError, match="linElas"):
+        tget_model("neoHooke")

@@ -176,7 +176,7 @@ def test_level_operators_match_jax(kind, level):
                 ) <= 1e-11
     jjv = jf.make_jacobian_native(jhfs.jacobian_planes, JPHYS, level)(
         jnp.asarray(v), jqn, jstn, jl.srestr, jl.nat_sgrad)
-    tjv = tf.make_jacobian_native(TPHYS, level)(torch.as_tensor(v), tqn, tstn)
+    tjv = tf.make_jacobian_native("hyperFS", TPHYS, level)(torch.as_tensor(v), tqn, tstn)
     assert _rel(tjv.numpy(), jjv) <= 1e-11
     jd = jf.make_diagonal(jhfs.jacobian_qf, JPHYS, level=level, native=True)(
         jqn, jstn, jl.restr)
@@ -188,7 +188,7 @@ def test_level_operators_match_jax(kind, level):
     jjv = jf.make_jacobian_structured(jhfs.jacobian_planes, JPHYS,
                                       level=level)(
         jnp.asarray(v), jq, jst, jl.srestr, jl.sgrad)
-    tjv = tf.make_jacobian_structured(TPHYS, level=level)(
+    tjv = tf.make_jacobian_structured("hyperFS", TPHYS, level=level)(
         torch.as_tensor(v), tq, tst)
     assert _rel(tjv.numpy(), jjv) <= 1e-11
     jd = jf.make_diagonal(jhfs.jacobian_qf, JPHYS, level=level)(

@@ -65,15 +65,3 @@ def test_solve_native_levels_matches_jax(monkeypatch):
     monkeypatch.setattr(tcg, "eig_start_vector", jax_start_vector)
     check_solve_matches(JProblem(_cfg(JConfig, "native")),
                         TProblem(_cfg(TConfig, "native", device="cpu")))
-
-
-def test_default_coarse_solve_is_refused():
-    """-multigrid logarithmic without -coarse_pc_type asks for the AMG
-    coarse solve, which is not ported: it raises, naming the option,
-    and never falls back to Chebyshev."""
-    flags = [f for f in PMG_FLAGS if f not in ("-coarse_pc_type",
-                                                "chebyshev")]
-    with pytest.raises(NotImplementedError, match="-coarse_pc_type amg"):
-        tcli.main(flags)
-    with pytest.raises(NotImplementedError, match="-coarse_pc_type"):
-        TConfig(problem="hyperFS", degree=2, test_mode=True, device="cpu")

@@ -127,11 +127,9 @@ def test_cli_smoke_matches_jax(capsys):
 
 
 @pytest.mark.parametrize("flags,option", [
-    (["-multigrid", "logarithmic", "-coarse_pc_type", "gamg"],
-     "-coarse_pc_type amg"),
-    (["-problem", "linElas", "-multigrid", "none"], "-problem linElas"),
     (["-mesh", "m.exo", "-multigrid", "none"], "-mesh m.exo"),
     (["-view_soln", "-multigrid", "none"], "-view_soln"),
+    (["-view_final_soln"], "-view_final_soln"),
 ])
 def test_cli_refuses_unported_options(flags, option):
     base = ["-problem", "hyperFS", "-test", "-nu", "0.3", "-E", "1"]
