@@ -12,14 +12,21 @@ assembled p = 1 CSR, chebyshev a matrix-free p = 1 Chebyshev polynomial; at
 -degree 1 under a multigrid schedule the AMG V-cycle is the whole
 preconditioner (PCGAMG); -multigrid none is Jacobi CG.
 
-Runs on CUDA when a GPU is present (float32), else on the CPU (float64).
-Options the port does not implement yet (-mesh; -view_soln,
--view_final_soln) raise NotImplementedError; unknown options are reported.
+Runs on CUDA (float32) and raises when no CUDA device is present; the CPU
+(float64) runs only when asked for, by the environment setting
+CEEDPETSCSOLID_TORCH_DEVICE=cpu (the counterpart of the JAX CLI honouring
+JAX_PLATFORMS=cpu). Options the port does not implement yet (-mesh;
+-view_soln, -view_final_soln) raise NotImplementedError; unknown options
+are reported.
 """
 
 from __future__ import annotations
 
+import os
 import sys
+
+# names the device for the CLI (cpu, cuda, cuda:1, ...); unset: CUDA
+DEVICE_ENV = "CEEDPETSCSOLID_TORCH_DEVICE"
 
 
 def _parse_args(argv):
@@ -131,6 +138,7 @@ def build_config(opts: dict):
         smooth_its=get("outer_mg_smooth_its", int, 3),
         coarse_solve=_coarse_solve(get("coarse_pc_type", str, "amg")),
         coarse_cheb_its=get("coarse_ksp_max_it", int, 30),
+        device=os.environ.get(DEVICE_ENV) or None,
     )
     # Newton (SNES) overrides
     cfg.newton.rtol = get("snes_rtol", float, cfg.newton.rtol)

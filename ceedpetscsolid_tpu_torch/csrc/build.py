@@ -8,7 +8,9 @@ process, all started together, and one nvcc call links the objects. The
 library goes to `build/kernels/` at the checkout root, named by a hash of
 its sources and flags: a changed source builds anew, an unchanged one is
 reused. Building needs nvcc (PATH, $CUDA_HOME/bin or /usr/local/cuda/bin);
-without it `build()` raises.
+without it `build()` raises. `build(csrc_dir, build_dir, units)` builds
+the same units from another checkout's sources (utils/compare_fused.py
+builds a parent commit's fused apply beside this one).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ UNITS = (("fused_apply.cu", _FUSED),
                                f"-DCPS_FUSED_P={p}"))
            for pw in PHYSICS.values() for p in range(2, MAX_Q + 1)),
          ("gather_probe.cu", ()))
+FUSED_UNITS = tuple(u for u in UNITS if u[0] == "fused_apply.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -48,13 +51,14 @@ def find_nvcc() -> str:
         "CUDA kernels of ceedpetscsolid_tpu_torch cannot be built")
 
 
-def library_path() -> Path:
+def library_path(csrc_dir: Path = CSRC, build_dir: Path = BUILD_DIR,
+                 units=UNITS) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name, flags in UNITS:
+    for name, flags in units:
         h.update(" ".join((name, *flags)).encode())
-    for name in sorted({name for name, _ in UNITS}):
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"cps_kernels_{h.hexdigest()[:16]}.so"
+    for name in sorted({name for name, _ in units}):
+        h.update((csrc_dir / name).read_bytes())
+    return build_dir / f"cps_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds):
@@ -70,26 +74,29 @@ def _run_all(cmds):
     return "".join(logs)
 
 
-def build() -> tuple[Path, str]:
+def build(csrc_dir: Path = CSRC, build_dir: Path = BUILD_DIR,
+          units=UNITS) -> tuple[Path, str]:
     """Compile (if needed) and return (library path, compiler log).
 
     The log holds ptxas's per-kernel register / shared-memory / spill
-    report; it is empty when an up-to-date library was reused."""
-    out = library_path()
+    report; it is empty when an up-to-date library was reused. A copy is
+    kept beside the library (<library stem>.ptxas.txt)."""
+    out = library_path(csrc_dir, build_dir, units)
     if out.exists():
         return out, ""
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{i}.o" for i in range(len(UNITS))]
+    objs = [build_dir / f"{tag}.{i}.o" for i in range(len(units))]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
         log = _run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
-                         str(CSRC / name)]
-                        for (name, flags), o in zip(UNITS, objs)])
+                         str(csrc_dir / name)]
+                        for (name, flags), o in zip(units, objs)])
         log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
                           *map(str, objs)]])
         os.replace(tmp, out)    # atomic: no concurrent build sees half a file
+        out.with_suffix(".ptxas.txt").write_text(log)
     finally:
         tmp.unlink(missing_ok=True)
         for o in objs:

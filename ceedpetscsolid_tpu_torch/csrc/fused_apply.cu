@@ -25,22 +25,55 @@
 // ve (3, nelem, P^3). The owner-sum over elements stays a deterministic
 // plain-torch gather-sum (ops/restriction.py), as in the JAX package.
 //
-// What bounds it on the card: the per-quadrature-point streams. Residual
-// mode reads qdata (10 words) and writes the stash (9 words), Jacobian mode
-// reads both: 19 * Q^3 * nelem words per apply, against 6 * P^3 * nelem
-// words of nodal gather and E-vector traffic. In f32 that is ~100 bytes per
-// point against ~1k flops (both sum-factorized contractions ~500, the
-// hyperFS 3x3 algebra ~500; linElas and hyperSS need a fifth of that and
-// read no stash in J.v): ~10 flops/byte, under the H100's f32 balance point
-// of ~20, so the kernel is memory-bound. Design response: one thread per
-// quadrature point, so those streams are read/written with consecutive
-// threads on consecutive addresses (coalesced along q in the (k, e, q)
-// layout); all intermediates of the contractions live in shared memory and
-// never touch device memory; the 1D B/D matrices (Q x P) are the only
-// basis data read. One block per element keeps the kernel simple; at Q = 1
-// a block is one warp of which one thread runs the physics, the nodal
-// contractions spreading over the warp. Multi-element blocks, wgmma and TMA
-// are later work.
+// What bounds it on the card: memory, on paper. Each input byte read once
+// and each output byte written once (ops/fused_apply.min_bytes), hyperFS at
+// 24^3, P = Q = 5, f32 moves 176.8 MB an apply (qdata 10 and stash 9 words
+// a point: 74% of it) against ~1.1k flops a point (ops/fused_apply.
+// min_flops: the sum-factorized contractions ~480, the hyperFS 3x3 algebra
+// ~620): 52.8 us at 3.35 TB/s against 28 us at 67 TFLOP/s. In practice
+// the warps an SM are: every contraction goes through shared memory and
+// the gather is two dependent global loads, so a warp's tile is a chain of
+// latencies that only other warps hide, and shared memory (the staged
+// streams) and registers (the physics) cap those at 11-14 an SM. Its (5,5)
+// f32 instances run at 43-63% of the bound at 24^3 (PERF.md §6).
+//
+// Design, full quadrature (Q >= 2, warp_tile_kernel): warp tiles. A block
+// is one warp; it owns a tile of G = max(1, 32 / Q^2) elements at a time
+// (one element at (5,5), so that a contraction phase is about one line a
+// lane) and walks the tiles blockIdx.x, + gridDim.x, ... with as many
+// blocks as the card holds at once. Only __syncwarp separates its phases,
+// so the warps of an SM are independent pipelines: one gathers while
+// another contracts or runs the physics. The tile's per-point streams,
+// qdata's 10 planes and in J.v the stash's 9 (warp_planes), are issued
+// right after the previous tile's physics: one lane issues TMA bulk copies
+// of each plane's slice, rounded out to 16 bytes, that complete on the
+// warp's mbarrier (or, where a plane is no multiple of 16 bytes or a base
+// is misaligned, every lane copies words with cp.async:
+// ops/fused_apply.copy_path states the same rule and counts the path);
+// they land while the previous tile's adjoint and this tile's gather and
+// forward contractions run. The gather is prefetched too (f32): the next
+// tile's node ids are loaded after the physics, u at them after adjoint y.
+// Thread layout: a lane takes one line position and all three components
+// in each contraction (so a B/D row serves three lines), one quadrature
+// point in the physics; f32 keeps B and D in registers (no shared copy),
+// f64 reads padded shared copies. ve goes out from the adjoint x
+// registers. Shared memory a warp: the slab of streams, buffer A (ue -> t2
+// -> adjoint t2) and buffer B (t1 -> du -> dv -> adjoint t1).
+// Occupancy: __launch_bounds__(32, the warps an SM's shared memory holds).
+// At (5,5) f32 a warp takes 20.0 KB in J.v (15.2 KB for linElas and
+// hyperSS, which stage no stash) and 15.2 KB in the residual: 11 and 14
+// warps an SM, beside 155-159 and 126 registers a thread (ptxas; 13 and 16
+// warps by registers): 11-14 elements in flight an SM, against 4 (of 4
+// warps each) in the earlier one-block-per-element body. f64 (5,5): 31.0 KB
+// and 186-188 registers a thread, 7 warps an SM.
+// Which instances take the block tile instead: block_tile() below.
+// Design, the block tile (block_tile_kernel: Q = 1, and f64 where the warp
+// tile spills or loses): a block takes E elements (a few hundred nodal
+// lines), one thread per element (Q = 1) or per point in the physics, the
+// contractions spread over the block between block barriers; its streams
+// come in by TMA bulk copies (thread 0 issues them) or cp.async at tile
+// start, in flight through the gather and the forward contractions. No
+// wgmma (2-6-wide contractions, f32 with TF32 off) and no atomics.
 //
 // Layouts (all row-major, x fastest inside a P^3 or Q^3 lattice):
 //   u      (3, N)            L-vector, component-major
@@ -57,6 +90,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace cps {
 
@@ -417,212 +452,1089 @@ __device__ __forceinline__ void jacobian_point(const T* ddu, const T* X,
   for (int k = 0; k < 9; ++k) dv[k] = dv[k] * wdetJ;
 }
 
-template <int Q>
-constexpr int threads_for() {
-  return ((Q * Q * Q + 31) / 32) * 32;
+// ---------------------------------------------------------------------------
+// Tile geometry (ops/fused_apply.py reads it through cps_fused_plan)
+// ---------------------------------------------------------------------------
+constexpr int kMaxThreads = 384;
+constexpr size_t kSmemBudget = 75 * 1024;  // bytes a block: 3 blocks an SM
+constexpr int kMaxPoints = 512;            // quadrature points a tile
+constexpr int kMaxElems = 64;
+constexpr size_t kBarBytes = 16;           // the mbarrier, padded to 16 bytes
+
+__host__ __device__ constexpr bool has_stash(int PH) { return PH != kLinElas; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int cgcd(int a, int b) {
+  return b == 0 ? a : cgcd(b, a % b);
+}
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
-// One block per element, one thread per quadrature point.
+struct TilePlan {
+  int elems;         // E, elements a tile
+  int threads;       // threads a block
+  int min_blocks;    // resident blocks an SM asked of __launch_bounds__
+  int planes;        // per-point streams staged: 10 qdata, + 9 stash in J.v
+  int plane_stride;  // words between staged planes: E Q^3 up to 16 bytes
+  int bd_words;      // B, D (Q rows of P) and B^T, D^T (P rows of Q)
+  int a_words;       // per element: ue -> t2 -> adjoint t2 -> staged ve
+  int b_words;       // per element: t1 -> adjoint t1
+  size_t smem;       // dynamic shared memory, bytes
+};
+
+// The largest tile within kSmemBudget, kMaxPoints and kMaxElems whose
+// element count keeps every tile's slice of a plane 16-byte aligned (at
+// least one such step, whatever the budget). Threads: one a contraction
+// line of the tile (at most kMaxThreads). Registers: at least 64 a thread
+// in f32 (72 for the pressure term), 128 in f64 (136), as few resident
+// blocks (at most 3) as that leaves room for.
+__host__ __device__ constexpr TilePlan tile_plan(int P, int Q, int tsize,
+                                                 int planes, bool pressure) {
+  const int Q3 = Q * Q * Q;
+  const int step = 16 / cgcd(Q3 * tsize, 16);
+  const int V = 16 / tsize;  // words a 16-byte load of a B/D row
+  const int P2 = round_up(P, 2), Q2 = round_up(Q, 2);
+  const int bd = 2 * Q * round_up(P, V) + 2 * P * round_up(Q, V);
+  const int a = round_up(cmax(cmax(3 * P * P * P2, 9 * Q * Q * P2),
+                              cmax(9 * P * Q * Q2, 3 * P * P * P)), 2);
+  const int b = round_up(cmax(6 * P * Q * P2, 6 * P * P * Q2), 2);
+  const int lines = cmax(3 * P * P, cmax(3 * P * Q, 3 * Q * Q));
+  const int regs = tsize == 4 ? (pressure ? 72 : 64) : (pressure ? 136 : 128);
+  TilePlan t{};
+  for (int E = step;; E += step) {
+    const int stride = round_up(E * Q3, V);
+    const size_t smem =
+        kBarBytes + (size_t)tsize * (bd + planes * stride + E * (a + b));
+    if (E > step &&
+        (smem > kSmemBudget || E > kMaxElems || E * Q3 > kMaxPoints))
+      break;
+    const int threads = cmin(kMaxThreads, round_up(E * lines, 32));
+    const int blocks = cmax(1, cmin(3, 65536 / (threads * regs)));
+    t = TilePlan{E, threads, blocks, planes, stride, bd, a, b, smem};
+  }
+  return t;
+}
+
 template <int PH, bool JAC, int P, int Q, typename T>
-__global__ void __launch_bounds__(threads_for<Q>())
-fused_apply_kernel(const T* __restrict__ u, long long N,
-                   const long long* __restrict__ conn, int nelem,
-                   const T* __restrict__ qdata, const T* __restrict__ Bg,
-                   const T* __restrict__ Dg, T* __restrict__ stash,
-                   T* __restrict__ ve, T a, T b) {
+struct Tile {
+  static_assert(Pointwise<PH>::kStash == has_stash(PH), "stash flag");
+  static constexpr bool kStashIn = JAC && Pointwise<PH>::kStash;
+  static constexpr TilePlan plan = tile_plan(
+      P, Q, sizeof(T), kStashIn ? 19 : 10, PH == kIncompPressure);
+  static_assert(plan.smem <= 227 * 1024, "a tile above 227 KB");
+};
+
+// Warp tiles (Q >= 2; see warp_tile_kernel): a block is one warp that owns
+// a tile of G elements at a time, G = 32 / Q^2 or 1, so that a contraction
+// phase has about one line a lane.
+constexpr size_t kSmSmem = 233472;      // shared memory of an SM (228 KB)
+constexpr size_t kBlockReserve = 1024;  // the runtime's share of it a block
+
+struct WarpPlan {
+  int elems;         // G, elements a warp tile
+  int planes;        // per-point streams staged: 10 qdata, + 9 stash in J.v
+  int plane_stride;  // words between staged planes
+  int bd_words;      // B, D (Q rows of P) and B^T, D^T (P rows of Q): f64
+  int a_words;       // buffer A: ue -> t2 -> adjoint t2
+  int b_words;       // buffer B: t1 -> du -> dv -> adjoint t1
+  size_t smem;       // dynamic shared memory, bytes
+  int min_blocks;    // one-warp blocks an SM asked of __launch_bounds__
+};
+
+__host__ __device__ constexpr WarpPlan warp_plan(int P, int Q, int tsize,
+                                                 int planes) {
+  const int V = 16 / tsize;
+  const int P2 = round_up(P, 2), Q2 = round_up(Q, 2);
+  const int Q3 = Q * Q * Q;
+  const int G = cmax(1, 32 / (Q * Q));
+  const int a = G * cmax(cmax(3 * P * P * P2, 9 * Q * Q * P2),
+                         9 * P * Q * Q2);
+  const int b = G * cmax(cmax(6 * P * Q * P2, 9 * Q3), 6 * P * P * Q2);
+  // a plane's slice of the tile, rounded out to 16 bytes at both ends
+  const int stride = round_up(G * Q3, V) + V;
+  // f32 keeps B and D in registers (bd_in_registers)
+  const int bd = tsize == 4 ? 0
+                            : 2 * Q * round_up(P, V) + 2 * P * round_up(Q, V);
+  const int A = round_up(a, V), B = round_up(b, V);
+  const size_t smem =
+      kBarBytes + (size_t)tsize * (bd + planes * stride + A + B);
+  const int blocks = (int)(kSmSmem / (smem + kBlockReserve));
+  return WarpPlan{G, planes, stride, bd, A, B, smem,
+                  cmin(32, cmax(1, blocks))};
+}
+
+// The per-point streams a warp tile stages: qdata's 10 planes and, in J.v,
+// the stash's 9, but for hyperSS, whose light physics reads its stash
+// straight from global memory: its tile is then as small as the residual's,
+// and the more warps an SM hide those loads (PERF.md §6, run X2).
+__host__ __device__ constexpr int warp_planes(int PH, bool jacobian) {
+  return jacobian && has_stash(PH) && PH != kHyperSS ? 19 : 10;
+}
+
+template <int PH, bool JAC, int P, int Q, typename T>
+struct WarpTile {
+  static constexpr bool kStashIn = JAC && Pointwise<PH>::kStash;
+  static constexpr bool kStage = warp_planes(PH, JAC) == 19;  // the stash
+  static constexpr WarpPlan plan =
+      warp_plan(P, Q, sizeof(T), warp_planes(PH, JAC));
+  static_assert(plan.smem <= 227 * 1024, "a warp tile above 227 KB");
+};
+
+// Which body an instance runs: the block tile for the pressure term (Q = 1),
+// for the f64 J.v of the finite-strain physics (hyperFS, hyperFSIncomp's mu
+// part), whose ~215 registers a thread and 40 KB a warp tile leave 5 warps
+// an SM (slower than the block tile there; PERF.md §6), and for f64 at
+// P = Q = 6, where a warp tile's lines (9 rows of 6 doubles a lane) spill
+// at 255 registers; the warp tile for everything else.
+__host__ __device__ constexpr bool block_tile(int PH, bool jacobian, int P,
+                                              int Q, int tsize) {
+  return Q == 1 || (tsize == 8 && P == 6) ||
+         (jacobian && tsize == 8 && (PH == kHyperFS || PH == kIncompMu));
+}
+
+// Copy path of one launch: TMA bulk copies when every staged stream (qdata;
+// in J.v the stash) starts 16-byte aligned and its planes are multiples of
+// 16 bytes long, so that every tile's slice is too; else cp.async.
+// ops/fused_apply.copy_path is the same rule.
+inline bool bulk_path(size_t tsize, int nelem, int Q, const void* qdata,
+                      const void* stash, bool stash_in) {
+  const size_t plane = tsize * (size_t)nelem * Q * Q * Q;
+  return plane % 16 == 0 && reinterpret_cast<uintptr_t>(qdata) % 16 == 0 &&
+         (!stash_in || reinterpret_cast<uintptr_t>(stash) % 16 == 0);
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits for the phase `parity` of `bar` to complete. A copy that never
+// completes traps (a launch error the wrapper raises) instead of hanging
+// the card: 2^28 polls are seconds, against microseconds of a tile's copies.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) into this block's shared memory; completes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// cp.async of one word (4 or 8 bytes)
+template <typename T>
+__device__ __forceinline__ void cp_async_word(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte words");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Row of N words of shared memory into registers, W words a load: the
+// source is aligned to W words and padded to a multiple of W.
+template <typename T, int W>
+struct alignas(sizeof(T) * W) Pack {
+  T v[W];
+};
+
+template <int W, int N, typename T>
+__device__ __forceinline__ void ld_row(const T* src, T (&dst)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += W) {
+    const Pack<T, W> p = *reinterpret_cast<const Pack<T, W>*>(src + i);
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (i + k < N) dst[i + k] = p.v[k];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The kernel: one tile of E elements a block (see the header). Every
+// contraction phase gives a thread one line of the tile: the P or Q values
+// it contracts, read as one padded row (the layouts below keep the
+// contracted direction contiguous), and the B/D rows it needs, read as
+// 16-byte loads from padded copies of B, D, B^T and D^T.
+// Per element, rows padded to P2 = P or Q2 = Q rounded up to even:
+//   ue           [c][pz][py] rows of px        (gather -> forward x)
+//   t1[2]        [c][pz][qx] rows of py        (forward x -> forward y)
+//   t2[3]        [c][qy][qx] rows of pz        (forward y -> forward z)
+//   adj t2[3]    [c][pz][qx] rows of qy        (adjoint z -> adjoint y)
+//   adj t1[2]    [c][pz][py] rows of qx        (adjoint y -> adjoint x)
+// ---------------------------------------------------------------------------
+template <int PH, bool JAC, int P, int Q, typename T>
+__global__ void __launch_bounds__(Tile<PH, JAC, P, Q, T>::plan.threads,
+                                  Tile<PH, JAC, P, Q, T>::plan.min_blocks)
+block_tile_kernel(const T* __restrict__ u, long long N,
+                  const long long* __restrict__ conn, int nelem,
+                  const T* __restrict__ qdata, const T* __restrict__ Bg,
+                  const T* __restrict__ Dg, T* __restrict__ stash,
+                  T* __restrict__ ve, T a, T b, int bulk) {
+  using TL = Tile<PH, JAC, P, Q, T>;
   constexpr int P3 = P * P * P;
   constexpr int Q3 = Q * Q * Q;
-  constexpr int N1 = 3 * P * P * Q;  // (c, pz, py, qx)
-  constexpr int N2 = 3 * P * Q * Q;  // (c, pz, qy, qx)
-  __shared__ T sB[Q * P], sD[Q * P];
-  __shared__ T ue[3 * P3];
-  __shared__ T t1[2][N1];
-  __shared__ T t2[3][N2];
-  __shared__ T dvs[9 * Q3];
+  constexpr int E = TL::plan.elems;
+  constexpr int NT = TL::plan.threads;
+  constexpr int PS = TL::plan.plane_stride;
+  constexpr int A = TL::plan.a_words;
+  constexpr int B1 = TL::plan.b_words;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int PV = round_up(P, V), QV = round_up(Q, V);
+  constexpr int P2 = round_up(P, 2), Q2 = round_up(Q, 2);
+  constexpr int T1 = 3 * P * Q * P2;   // one t1 array
+  constexpr int T2 = 3 * Q * Q * P2;   // one t2 array
+  constexpr int T2A = 3 * P * Q * Q2;  // one adjoint t2 array
+  constexpr int T1A = 3 * P * P * Q2;  // one adjoint t1 array
 
-  const int e = blockIdx.x;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  T* sB = reinterpret_cast<T*>(smem + kBarBytes);  // Q rows of PV
+  T* sD = sB + Q * PV;
+  T* sBT = sD + Q * PV;  // P rows of QV
+  T* sDT = sBT + P * QV;
+  // slab: plane k at k * PS; qdata planes 0-9, stash planes 10-18 (J.v);
+  // the physics overwrites a point's qdata planes 0-8 with its dv
+  T* slab = sB + TL::plan.bd_words;
+  T* bufA = slab + TL::plan.planes * PS;  // element e at e * A
+  T* bufB = bufA + E * A;                 // element e at e * B1
+
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int e0 = blockIdx.x * E;
+  const int ne = min(E, nelem - e0);
+  const int npts = ne * Q3;
   const size_t plane = (size_t)nelem * Q3;
+  const size_t off0 = (size_t)e0 * Q3;  // the tile's first point in a plane
 
-  for (int i = tid; i < Q * P; i += nt) {
-    sB[i] = Bg[i];
-    sD[i] = Dg[i];
+  // ---- the tile's per-point streams, in flight through the gather and the
+  // forward contractions ----
+  if (bulk) {
+    if (tid == 0) {
+      const uint32_t bytes = sizeof(T) * npts;
+      mbar_init(bar, 1);
+      mbar_arrive_expect_tx(bar, bytes * TL::plan.planes);
+      for (int k = 0; k < TL::plan.planes; ++k) {
+        const T* src = k < 10 ? qdata + k * plane + off0
+                              : stash + (k - 10) * plane + off0;
+        bulk_load(slab + k * PS, src, bytes, bar);
+      }
+    }
+  } else {
+    for (int k = 0; k < 10; ++k)
+      for (int w = tid; w < npts; w += NT)
+        cp_async_word(slab + k * PS + w, qdata + k * plane + off0 + w);
+    if constexpr (TL::kStashIn) {
+      for (int k = 0; k < 9; ++k)
+        for (int w = tid; w < npts; w += NT)
+          cp_async_word(slab + (10 + k) * PS + w, stash + k * plane + off0 + w);
+    }
   }
-  for (int i = tid; i < P3; i += nt) {
-    const long long node = conn[(size_t)e * P3 + i];
+
+  // ---- B, D (rows by quadrature point) and B^T, D^T (rows by node), the
+  // padding zero; the nodal gather into ue ----
+  for (int i = tid; i < Q * PV; i += NT) {
+    const int q = i / PV, p = i - q * PV;
+    sB[i] = p < P ? Bg[q * P + p] : T(0);
+    sD[i] = p < P ? Dg[q * P + p] : T(0);
+  }
+  for (int i = tid; i < P * QV; i += NT) {
+    const int p = i / QV, q = i - p * QV;
+    sBT[i] = q < Q ? Bg[q * P + p] : T(0);
+    sDT[i] = q < Q ? Dg[q * P + p] : T(0);
+  }
+  const long long* ce = conn + (size_t)e0 * P3;
+  for (int i = tid; i < ne * P3; i += NT) {
+    const long long node = ce[i];
+    const int e = i / P3;
+    const int p = i - e * P3;
+    const int row = p / P;  // pz * P + py
+    T* ue = bufA + e * A + row * P2 + (p - row * P);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) ue[c * P3 + i] = u[c * N + node];
+    for (int c = 0; c < 3; ++c) ue[c * P * P * P2] = u[c * N + node];
   }
   __syncthreads();
 
-  // ---- forward: u (c,pz,py,px) -> reference gradients at (qz,qy,qx) ----
-  // x: t1[0] = sum_px B[qx,px] u, t1[1] = sum_px D[qx,px] u
-  for (int i = tid; i < N1; i += nt) {
-    const int qx = i % Q;
-    const T* row = ue + (i / Q) * P;
-    T bsum = T(0), dsum = T(0);
+  // ---- forward x: a row (c, pz, py) -> t1[0] = B_x u, t1[1] = D_x u at
+  // every qx ----
+  for (int i = tid; i < ne * 3 * P * P; i += NT) {
+    const int e = i / (3 * P * P);
+    const int r = i - e * (3 * P * P);  // (c * P + pz) * P + py
+    T x[P];
+    ld_row<2>(bufA + e * A + r * P2, x);
+    const int rp = r / P;               // c * P + pz
+    T* o = bufB + e * B1 + rp * Q * P2 + (r - rp * P);
 #pragma unroll
-    for (int px = 0; px < P; ++px) {
-      bsum += sB[qx * P + px] * row[px];
-      dsum += sD[qx * P + px] * row[px];
+    for (int qx = 0; qx < Q; ++qx) {
+      T bq[P], dq[P];
+      ld_row<V>(sB + qx * PV, bq);
+      ld_row<V>(sD + qx * PV, dq);
+      T bs = T(0), ds = T(0);
+#pragma unroll
+      for (int px = 0; px < P; ++px) {
+        bs += bq[px] * x[px];
+        ds += dq[px] * x[px];
+      }
+      o[qx * P2] = bs;
+      o[T1 + qx * P2] = ds;
     }
-    t1[0][i] = bsum;
-    t1[1][i] = dsum;
   }
   __syncthreads();
-  // y: t2[0] = B_y D_x u, t2[1] = D_y B_x u, t2[2] = B_y B_x u
-  for (int i = tid; i < N2; i += nt) {
-    const int qx = i % Q;
-    const int qy = (i / Q) % Q;
-    const int r = i / (Q * Q);  // c*P + pz
-    T bd = T(0), db = T(0), bb = T(0);
+
+  // ---- forward y: a line (c, pz, qx) over py -> t2[0] = B_y D_x u,
+  // t2[1] = D_y B_x u, t2[2] = B_y B_x u at every qy ----
+  for (int i = tid; i < ne * 3 * P * Q; i += NT) {
+    const int e = i / (3 * P * Q);
+    const int j = i - e * (3 * P * Q);  // (c * P + pz) * Q + qx
+    T x0[P], x1[P];
+    ld_row<2>(bufB + e * B1 + j * P2, x0);
+    ld_row<2>(bufB + e * B1 + T1 + j * P2, x1);
+    const int c = j / (P * Q);
+    const int rq = j / Q;               // c * P + pz
+    const int qx = j - rq * Q;
+    T* o = bufA + e * A + (c * Q * Q + qx) * P2 + (rq - c * P);
 #pragma unroll
-    for (int py = 0; py < P; ++py) {
-      const int j = (r * P + py) * Q + qx;
-      bd += sB[qy * P + py] * t1[1][j];
-      db += sD[qy * P + py] * t1[0][j];
-      bb += sB[qy * P + py] * t1[0][j];
+    for (int qy = 0; qy < Q; ++qy) {
+      T bq[P], dq[P];
+      ld_row<V>(sB + qy * PV, bq);
+      ld_row<V>(sD + qy * PV, dq);
+      T bd = T(0), db = T(0), bb = T(0);
+#pragma unroll
+      for (int py = 0; py < P; ++py) {
+        bd += bq[py] * x1[py];
+        db += dq[py] * x0[py];
+        bb += bq[py] * x0[py];
+      }
+      o[qy * Q * P2] = bd;
+      o[T2 + qy * Q * P2] = db;
+      o[2 * T2 + qy * Q * P2] = bb;
     }
-    t2[0][i] = bd;
-    t2[1][i] = db;
-    t2[2][i] = bb;
   }
+  if (!bulk) cp_async_wait_all();
   __syncthreads();
-  // z + pointwise physics, one thread per quadrature point
-  for (int q = tid; q < Q3; q += nt) {
-    const int qx = q % Q;
-    const int qy = (q / Q) % Q;
+  if (bulk) mbar_wait(bar, 0);
+
+  // ---- forward z + pointwise physics, one quadrature point of the tile a
+  // thread (pt = e * Q^3 + q, also its offset in a staged plane) ----
+  for (int pt = tid; pt < npts; pt += NT) {
+    const int e = pt / Q3;
+    const int q = pt - e * Q3;
     const int qz = q / (Q * Q);
+    const int qxy = q - qz * (Q * Q);  // qy * Q + qx
+    T bz[P], dz[P];
+    ld_row<V>(sB + qz * PV, bz);
+    ld_row<V>(sD + qz * PV, dz);
+    const T* t2 = bufA + e * A + qxy * P2;
     T du[9];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
+      T r0[P], r1[P], r2[P];
+      ld_row<2>(t2 + c * Q * Q * P2, r0);
+      ld_row<2>(t2 + T2 + c * Q * Q * P2, r1);
+      ld_row<2>(t2 + 2 * T2 + c * Q * Q * P2, r2);
       T a0 = T(0), a1 = T(0), a2 = T(0);
 #pragma unroll
       for (int pz = 0; pz < P; ++pz) {
-        const int j = ((c * P + pz) * Q + qy) * Q + qx;
-        a0 += sB[qz * P + pz] * t2[0][j];
-        a1 += sB[qz * P + pz] * t2[1][j];
-        a2 += sD[qz * P + pz] * t2[2][j];
+        a0 += bz[pz] * r0[pz];
+        a1 += bz[pz] * r1[pz];
+        a2 += dz[pz] * r2[pz];
       }
       du[3 * c + 0] = a0;
       du[3 * c + 1] = a1;
       du[3 * c + 2] = a2;
     }
-    const size_t off = (size_t)e * Q3 + q;
-    const T wdetJ = qdata[off];
+    const T wdetJ = slab[pt];
     T X[9];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) X[k] = qdata[(1 + k) * plane + off];
+    for (int k = 0; k < 9; ++k) X[k] = slab[(1 + k) * PS + pt];
     T dv[9], g[9];
     if constexpr (JAC) {
-      if constexpr (Pointwise<PH>::kStash) {
+      if constexpr (TL::kStashIn) {
 #pragma unroll
-        for (int k = 0; k < 9; ++k) g[k] = stash[k * plane + off];
+        for (int k = 0; k < 9; ++k) g[k] = slab[(10 + k) * PS + pt];
       }
       jacobian_point<PH>(du, X, wdetJ, g, a, b, dv);
     } else {
       residual_point<PH>(du, X, wdetJ, a, b, dv, g);
       if constexpr (Pointwise<PH>::kStash) {
 #pragma unroll
-        for (int k = 0; k < 9; ++k) stash[k * plane + off] = g[k];
+        for (int k = 0; k < 9; ++k) stash[k * plane + off0 + pt] = g[k];
       }
     }
 #pragma unroll
-    for (int k = 0; k < 9; ++k) dvs[k * Q3 + q] = dv[k];
+    for (int k = 0; k < 9; ++k) slab[k * PS + pt] = dv[k];
   }
   __syncthreads();
 
-  // ---- adjoint: ve[c,p] = sum_q sum_d G_d[q,p] dv[c,d,q] ----
-  // z: t2[0] = B_z dv0, t2[1] = B_z dv1, t2[2] = D_z dv2 over (c,pz,qy,qx)
-  for (int i = tid; i < N2; i += nt) {
-    const int qxy = i % (Q * Q);
-    const int r = i / (Q * Q);
-    const int c = r / P;
-    const int pz = r % P;
-    T a0 = T(0), a1 = T(0), a2 = T(0);
+  // ---- adjoint z: a line (c, qy, qx) of dv over qz -> adjoint t2[0] =
+  // B_z^T dv0, t2[1] = B_z^T dv1, t2[2] = D_z^T dv2 at every pz ----
+  for (int i = tid; i < ne * 3 * Q * Q; i += NT) {
+    const int e = i / (3 * Q * Q);
+    const int j = i - e * (3 * Q * Q);
+    const int c = j / (Q * Q);
+    const int qxy = j - c * (Q * Q);
+    const int qy = qxy / Q;
+    const T* d = slab + e * Q3 + qxy;
+    T y0[Q], y1[Q], y2[Q];
 #pragma unroll
     for (int qz = 0; qz < Q; ++qz) {
-      const int qi = qz * Q * Q + qxy;
-      a0 += sB[qz * P + pz] * dvs[(3 * c + 0) * Q3 + qi];
-      a1 += sB[qz * P + pz] * dvs[(3 * c + 1) * Q3 + qi];
-      a2 += sD[qz * P + pz] * dvs[(3 * c + 2) * Q3 + qi];
+      y0[qz] = d[(3 * c + 0) * PS + qz * Q * Q];
+      y1[qz] = d[(3 * c + 1) * PS + qz * Q * Q];
+      y2[qz] = d[(3 * c + 2) * PS + qz * Q * Q];
     }
-    t2[0][i] = a0;
-    t2[1][i] = a1;
-    t2[2][i] = a2;
+    T* o = bufA + e * A + (c * P * Q + (qxy - qy * Q)) * Q2 + qy;
+#pragma unroll
+    for (int pz = 0; pz < P; ++pz) {
+      T bt[Q], dt[Q];
+      ld_row<V>(sBT + pz * QV, bt);
+      ld_row<V>(sDT + pz * QV, dt);
+      T a0 = T(0), a1 = T(0), a2 = T(0);
+#pragma unroll
+      for (int qz = 0; qz < Q; ++qz) {
+        a0 += bt[qz] * y0[qz];
+        a1 += bt[qz] * y1[qz];
+        a2 += dt[qz] * y2[qz];
+      }
+      o[pz * Q * Q2] = a0;
+      o[T2A + pz * Q * Q2] = a1;
+      o[2 * T2A + pz * Q * Q2] = a2;
+    }
   }
   __syncthreads();
-  // y: t1[0] = B_y t2[0] (needs D_x), t1[1] = D_y t2[1] + B_y t2[2] (B_x)
-  for (int i = tid; i < N1; i += nt) {
-    const int qx = i % Q;
-    const int py = (i / Q) % P;
-    const int r = i / (Q * P);  // c*P + pz
-    T bx = T(0), bb = T(0);
+
+  // ---- adjoint y: a line (c, pz, qx) over qy -> adjoint t1[0] =
+  // B_y^T t2[0], t1[1] = D_y^T t2[1] + B_y^T t2[2] at every py ----
+  for (int i = tid; i < ne * 3 * P * Q; i += NT) {
+    const int e = i / (3 * P * Q);
+    const int j = i - e * (3 * P * Q);  // (c * P + pz) * Q + qx
+    T y0[Q], y1[Q], y2[Q];
+    ld_row<2>(bufA + e * A + j * Q2, y0);
+    ld_row<2>(bufA + e * A + T2A + j * Q2, y1);
+    ld_row<2>(bufA + e * A + 2 * T2A + j * Q2, y2);
+    const int rp = j / Q;  // c * P + pz
+    T* o = bufB + e * B1 + rp * P * Q2 + (j - rp * Q);
 #pragma unroll
-    for (int qy = 0; qy < Q; ++qy) {
-      const int j = (r * Q + qy) * Q + qx;
-      bx += sB[qy * P + py] * t2[0][j];
-      bb += sD[qy * P + py] * t2[1][j] + sB[qy * P + py] * t2[2][j];
+    for (int py = 0; py < P; ++py) {
+      T bt[Q], dt[Q];
+      ld_row<V>(sBT + py * QV, bt);
+      ld_row<V>(sDT + py * QV, dt);
+      T bx = T(0), bb = T(0);
+#pragma unroll
+      for (int qy = 0; qy < Q; ++qy) {
+        bx += bt[qy] * y0[qy];
+        bb += dt[qy] * y1[qy] + bt[qy] * y2[qy];
+      }
+      o[py * Q2] = bx;
+      o[T1A + py * Q2] = bb;
     }
-    t1[0][i] = bx;
-    t1[1][i] = bb;
   }
   __syncthreads();
-  // x: ve = D_x t1[0] + B_x t1[1]
-  for (int i = tid; i < 3 * P3; i += nt) {
-    const int px = i % P;
-    const int r = i / P;  // (c*P + pz)*P + py
-    const int c = i / P3;
-    const int p = i % P3;
-    T s = T(0);
+
+  // ---- adjoint x: a row (c, pz, py) over qx -> ve = D_x^T t1[0] +
+  // B_x^T t1[1] at every px, staged per component over the tile ----
+  for (int i = tid; i < ne * 3 * P * P; i += NT) {
+    const int e = i / (3 * P * P);
+    const int r = i - e * (3 * P * P);  // (c * P + pz) * P + py
+    T x0[Q], x1[Q];
+    ld_row<2>(bufB + e * B1 + r * Q2, x0);
+    ld_row<2>(bufB + e * B1 + T1A + r * Q2, x1);
+    const int c = r / (P * P);
+    T* o = bufA + c * (E * P3) + e * P3 + (r - c * P * P) * P;
 #pragma unroll
-    for (int qx = 0; qx < Q; ++qx) {
-      const int j = r * Q + qx;
-      s += sD[qx * P + px] * t1[0][j] + sB[qx * P + px] * t1[1][j];
+    for (int px = 0; px < P; ++px) {
+      T bt[Q], dt[Q];
+      ld_row<V>(sBT + px * QV, bt);
+      ld_row<V>(sDT + px * QV, dt);
+      T acc = T(0);
+#pragma unroll
+      for (int qx = 0; qx < Q; ++qx)
+        acc += dt[qx] * x0[qx] + bt[qx] * x1[qx];
+      o[px] = acc;
     }
-    ve[((size_t)c * nelem + e) * P3 + p] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    T* dst = ve + ((size_t)c * nelem + e0) * P3;
+    for (int w = tid; w < ne * P3; w += NT) dst[w] = bufA[c * (E * P3) + w];
   }
 }
 
+// The node ids of tile t's gather for this lane, lane + 32 it of the tile's
+// G P^3 (node 0 past the tile's last element), and u's three components at
+// them: issued together, so that their latencies overlap.
+template <int G, int P3, int IT>
+__device__ __forceinline__ void gather_nodes(long long (&node)[IT],
+                                             const long long* __restrict__ conn,
+                                             int t, int nelem, int lane) {
+  const int n = min(G, nelem - t * G) * P3;
+  const long long* ce = conn + (size_t)t * G * P3;
+#pragma unroll
+  for (int it = 0; it < IT; ++it)
+    node[it] = lane + 32 * it < n ? ce[lane + 32 * it] : 0;
+}
+
+template <int IT, typename T>
+__device__ __forceinline__ void gather_values(T (&val)[IT][3],
+                                              const long long (&node)[IT],
+                                              const T* __restrict__ u,
+                                              long long N) {
+#pragma unroll
+  for (int it = 0; it < IT; ++it)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) val[it][c] = u[c * N + node[it]];
+}
+
+// Row q of B and of D (P values each), and row p of B^T and of D^T (Q
+// values each): from the registers rB, rD in f32, else from the padded
+// shared copies (16-byte loads, the same row for every lane). f64 keeps
+// them in shared memory: 2 P Q doubles of registers would crowd out the
+// physics.
+template <typename T>
+__host__ __device__ constexpr bool bd_in_registers() {
+  return sizeof(T) == 4;
+}
+
+template <int V, int PV, int Q, int P, typename T>
+__device__ __forceinline__ void bd_row(int q, const T (&rB)[Q][P],
+                                       const T (&rD)[Q][P], const T* sB,
+                                       const T* sD, T (&b)[P], T (&d)[P]) {
+  if constexpr (bd_in_registers<T>()) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      b[p] = rB[q][p];
+      d[p] = rD[q][p];
+    }
+  } else {
+    ld_row<V>(sB + q * PV, b);
+    ld_row<V>(sD + q * PV, d);
+  }
+}
+
+template <int V, int QV, int Q, int P, typename T>
+__device__ __forceinline__ void bdt_row(int p, const T (&rB)[Q][P],
+                                        const T (&rD)[Q][P], const T* sBT,
+                                        const T* sDT, T (&b)[Q], T (&d)[Q]) {
+  if constexpr (bd_in_registers<T>()) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      b[q] = rB[q][p];
+      d[q] = rD[q][p];
+    }
+  } else {
+    ld_row<V>(sBT + p * QV, b);
+    ld_row<V>(sDT + p * QV, d);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The full-quadrature kernel (Q >= 2): warp tiles (see the header). Per
+// element, rows padded to P2 or Q2 (buffer A or B):
+//   ue     A  [c][pz][py] rows of px
+//   t1     B  [b|d][c][pz][qx] rows of py
+//   t2     A  [bd|db|bb][c][qy][qx] rows of pz
+//   du/dv  B  [3c+k][e][q] (a plane of the tile's points)
+//   a2     A  [0|1|2][c][pz][qx] rows of qy
+//   a1     B  [0|1][c][pz][py] rows of qx
+// ---------------------------------------------------------------------------
 template <int PH, bool JAC, int P, int Q, typename T>
-void launch(const void* u, long long N, const void* conn, int nelem,
-            const void* qdata, const void* B, const void* D, void* stash,
-            void* ve, double a, double b, cudaStream_t stream) {
-  fused_apply_kernel<PH, JAC, P, Q, T>
-      <<<nelem, threads_for<Q>(), 0, stream>>>(
-          static_cast<const T*>(u), N, static_cast<const long long*>(conn),
-          nelem, static_cast<const T*>(qdata), static_cast<const T*>(B),
-          static_cast<const T*>(D), static_cast<T*>(stash),
-          static_cast<T*>(ve), T(a), T(b));
+__global__ void __launch_bounds__(32,
+                                  WarpTile<PH, JAC, P, Q, T>::plan.min_blocks)
+warp_tile_kernel(const T* __restrict__ u, long long N,
+                 const long long* __restrict__ conn, int nelem,
+                 const T* __restrict__ qdata, const T* __restrict__ Bg,
+                 const T* __restrict__ Dg, T* __restrict__ stash,
+                 T* __restrict__ ve, T a, T b, int bulk) {
+  using WT = WarpTile<PH, JAC, P, Q, T>;
+  constexpr int P3 = P * P * P, Q3 = Q * Q * Q;
+  constexpr int G = WT::plan.elems;
+  constexpr int NPL = WT::plan.planes;
+  constexpr int PS = WT::plan.plane_stride;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int PV = round_up(P, V), QV = round_up(Q, V);
+  constexpr int P2 = round_up(P, 2), Q2 = round_up(Q, 2);
+  constexpr int UE = 3 * P * P * P2;   // per element: ue
+  constexpr int T1 = 6 * P * Q * P2;   // t1
+  constexpr int T2 = 9 * Q * Q * P2;   // t2
+  constexpr int A2 = 9 * P * Q * Q2;   // adjoint t2
+  constexpr int A1 = 6 * P * P * Q2;   // adjoint t1
+  constexpr int GQ3 = G * Q3, GP3 = G * P3;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  T* sB = reinterpret_cast<T*>(smem + kBarBytes);  // Q rows of PV
+  T* sD = sB + Q * PV;
+  T* sBT = sD + Q * PV;  // P rows of QV
+  T* sDT = sBT + P * QV;
+  T* slab = sB + WT::plan.bd_words;  // plane k at k * PS
+  T* bufA = slab + NPL * PS;
+  T* bufB = bufA + WT::plan.a_words;
+
+  const int lane = threadIdx.x;
+  const int ntiles = (nelem + G - 1) / G;
+  const size_t plane = (size_t)nelem * Q3;
+  const size_t plane_ve = (size_t)nelem * P3;
+
+  T rB[Q][P], rD[Q][P];  // used in f32 only (bd_in_registers)
+  if constexpr (!bd_in_registers<T>()) {
+    for (int i = lane; i < Q * PV; i += 32) {
+      const int q = i / PV, p = i - q * PV;
+      sB[i] = p < P ? Bg[q * P + p] : T(0);
+      sD[i] = p < P ? Dg[q * P + p] : T(0);
+    }
+    for (int i = lane; i < P * QV; i += 32) {
+      const int p = i / QV, q = i - p * QV;
+      sBT[i] = q < Q ? Bg[q * P + p] : T(0);
+      sDT[i] = q < Q ? Dg[q * P + p] : T(0);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        rB[q][p] = Bg[q * P + p];
+        rD[q][p] = Dg[q * P + p];
+      }
+  }
+  if (bulk && lane == 0) mbar_init(bar, 1);
+  __syncwarp();
+
+  // the per-point streams of tile t into the slab: TMA copies of each
+  // plane's slice rounded out to 16 bytes (bulk_path keeps that inside the
+  // plane), or cp.async word by word from the slice's first point
+  auto issue = [&](int t) {
+    const int e0 = t * G;
+    const int n = min(G, nelem - e0) * Q3;
+    const size_t s = (size_t)e0 * Q3;
+    if (bulk) {
+      if (lane == 0) {
+        const size_t s0 = s & ~(size_t)(V - 1);
+        const uint32_t bytes =
+            sizeof(T) * round_up(static_cast<int>(s - s0) + n, V);
+        mbar_arrive_expect_tx(bar, bytes * NPL);
+        for (int k = 0; k < NPL; ++k) {
+          const T* src = k < 10 ? qdata + k * plane + s0
+                                : stash + (k - 10) * plane + s0;
+          bulk_load(slab + k * PS, src, bytes, bar);
+        }
+      }
+    } else {
+      for (int k = 0; k < 10; ++k)
+        for (int w = lane; w < n; w += 32)
+          cp_async_word(slab + k * PS + w, qdata + k * plane + s + w);
+      if constexpr (WT::kStage) {
+        for (int k = 0; k < 9; ++k)
+          for (int w = lane; w < n; w += 32)
+            cp_async_word(slab + (10 + k) * PS + w, stash + k * plane + s + w);
+      }
+    }
+  };
+
+  // f32 prefetches the gather a tile ahead; f64 gathers in place (its
+  // prefetched values would crowd the registers at P = Q = 6)
+  constexpr bool kPrefetch = sizeof(T) == 4;
+  constexpr int IT = (GP3 + 31) / 32;
+  long long node[IT];
+  T val[IT][3];
+  int t = blockIdx.x;
+  if (t < ntiles) {
+    issue(t);
+    if constexpr (kPrefetch) {
+      gather_nodes<G, P3>(node, conn, t, nelem, lane);
+      gather_values(val, node, u, N);
+    }
+  }
+  uint32_t parity = 0;
+  for (; t < ntiles; t += gridDim.x) {
+    const int e0 = t * G;
+    const int ne = min(G, nelem - e0);
+    // the tile's first point in a staged plane
+    const int off = bulk ? static_cast<int>(((size_t)e0 * Q3) & (V - 1)) : 0;
+
+    // ---- gather: u at the tile's nodes (in f32 loaded during the previous
+    // tile, or above for the first) ----
+    {
+      if constexpr (!kPrefetch) {
+        gather_nodes<G, P3>(node, conn, t, nelem, lane);
+        gather_values(val, node, u, N);
+      }
+#pragma unroll
+      for (int it = 0; it < IT; ++it) {
+        const int i = lane + 32 * it;
+        if (i < ne * P3) {
+          const int e = i / P3;
+          const int p = i - e * P3;
+          const int row = p / P;  // pz * P + py
+          T* o = bufA + e * UE + row * P2 + (p - row * P);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) o[c * P * P * P2] = val[it][c];
+        }
+      }
+    }
+    __syncwarp();
+
+    // ---- forward x: position (pz, py) -> t1 b = B_x u, d = D_x u ----
+    for (int i = lane; i < ne * P * P; i += 32) {
+      const int e = i / (P * P);
+      const int r = i - e * (P * P);  // pz * P + py
+      T x[3][P];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        ld_row<2>(bufA + e * UE + c * P * P * P2 + r * P2, x[c]);
+      const int pz = r / P;
+      T* o = bufB + e * T1 + pz * Q * P2 + (r - pz * P);
+#pragma unroll
+      for (int qx = 0; qx < Q; ++qx) {
+        T bq[P], dq[P];
+        bd_row<V, PV>(qx, rB, rD, sB, sD, bq, dq);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          T bs = T(0), ds = T(0);
+#pragma unroll
+          for (int px = 0; px < P; ++px) {
+            bs += bq[px] * x[c][px];
+            ds += dq[px] * x[c][px];
+          }
+          o[c * P * Q * P2 + qx * P2] = bs;
+          o[(3 + c) * P * Q * P2 + qx * P2] = ds;
+        }
+      }
+    }
+    __syncwarp();
+
+    // ---- forward y: position (pz, qx) -> t2 bd = B_y D_x u,
+    // db = D_y B_x u, bb = B_y B_x u ----
+    for (int i = lane; i < ne * P * Q; i += 32) {
+      const int e = i / (P * Q);
+      const int j = i - e * (P * Q);  // pz * Q + qx
+      T x0[3][P], x1[3][P];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        ld_row<2>(bufB + e * T1 + c * P * Q * P2 + j * P2, x0[c]);
+        ld_row<2>(bufB + e * T1 + (3 + c) * P * Q * P2 + j * P2, x1[c]);
+      }
+      const int pz = j / Q;
+      T* o = bufA + e * T2 + (j - pz * Q) * P2 + pz;
+#pragma unroll
+      for (int qy = 0; qy < Q; ++qy) {
+        T bq[P], dq[P];
+        bd_row<V, PV>(qy, rB, rD, sB, sD, bq, dq);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          T bd = T(0), db = T(0), bb = T(0);
+#pragma unroll
+          for (int py = 0; py < P; ++py) {
+            bd += bq[py] * x1[c][py];
+            db += dq[py] * x0[c][py];
+            bb += bq[py] * x0[c][py];
+          }
+          o[c * Q * Q * P2 + qy * Q * P2] = bd;
+          o[(3 + c) * Q * Q * P2 + qy * Q * P2] = db;
+          o[(6 + c) * Q * Q * P2 + qy * Q * P2] = bb;
+        }
+      }
+    }
+    __syncwarp();
+
+    // ---- forward z: position (qy, qx) -> du[3c + k] at every qz ----
+    for (int i = lane; i < ne * Q * Q; i += 32) {
+      const int e = i / (Q * Q);
+      const int qxy = i - e * (Q * Q);  // qy * Q + qx
+      T r[9][P];
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        ld_row<2>(bufA + e * T2 + k * Q * Q * P2 + qxy * P2, r[k]);
+      T* o = bufB + e * Q3 + qxy;
+#pragma unroll
+      for (int qz = 0; qz < Q; ++qz) {
+        T bz[P], dz[P];
+        bd_row<V, PV>(qz, rB, rD, sB, sD, bz, dz);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          T a0 = T(0), a1 = T(0), a2 = T(0);
+#pragma unroll
+          for (int pz = 0; pz < P; ++pz) {
+            a0 += bz[pz] * r[c][pz];
+            a1 += bz[pz] * r[3 + c][pz];
+            a2 += dz[pz] * r[6 + c][pz];
+          }
+          o[(3 * c + 0) * GQ3 + qz * Q * Q] = a0;
+          o[(3 * c + 1) * GQ3 + qz * Q * Q] = a1;
+          o[(3 * c + 2) * GQ3 + qz * Q * Q] = a2;
+        }
+      }
+    }
+    if (bulk) {
+      mbar_wait(bar, parity);
+      parity ^= 1u;
+    } else {
+      cp_async_wait_all();
+    }
+    __syncwarp();
+
+    // ---- pointwise physics, one point of the tile a lane; dv overwrites
+    // du in place ----
+#pragma unroll 1
+    for (int pt = lane; pt < ne * Q3; pt += 32) {
+      T du[9], X[9], dv[9], g[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) du[k] = bufB[k * GQ3 + pt];
+      const T* sl = slab + off + pt;
+      const T wdetJ = sl[0];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) X[k] = sl[(1 + k) * PS];
+      if constexpr (JAC) {
+        if constexpr (WT::kStage) {
+#pragma unroll
+          for (int k = 0; k < 9; ++k) g[k] = sl[(10 + k) * PS];
+        } else if constexpr (WT::kStashIn) {
+#pragma unroll
+          for (int k = 0; k < 9; ++k)
+            g[k] = stash[k * plane + (size_t)e0 * Q3 + pt];
+        }
+        jacobian_point<PH>(du, X, wdetJ, g, a, b, dv);
+      } else {
+        residual_point<PH>(du, X, wdetJ, a, b, dv, g);
+        if constexpr (Pointwise<PH>::kStash) {
+#pragma unroll
+          for (int k = 0; k < 9; ++k)
+            stash[k * plane + (size_t)e0 * Q3 + pt] = g[k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 9; ++k) bufB[k * GQ3 + pt] = dv[k];
+    }
+    __syncwarp();
+    // the slab is free: the next tile's streams land during this adjoint
+    const int next = t + static_cast<int>(gridDim.x);
+    if (next < ntiles) {
+      issue(next);
+      if constexpr (kPrefetch)
+        gather_nodes<G, P3>(node, conn, next, nelem, lane);
+    }
+
+    // ---- adjoint z: position (qy, qx) -> a2 0 = B_z^T dv0,
+    // 1 = B_z^T dv1, 2 = D_z^T dv2 at every pz ----
+    for (int i = lane; i < ne * Q * Q; i += 32) {
+      const int e = i / (Q * Q);
+      const int qxy = i - e * (Q * Q);
+      const int qy = qxy / Q;
+      T y[9][Q];
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+#pragma unroll
+        for (int qz = 0; qz < Q; ++qz)
+          y[k][qz] = bufB[k * GQ3 + e * Q3 + qz * Q * Q + qxy];
+      T* o = bufA + e * A2 + (qxy - qy * Q) * Q2 + qy;
+#pragma unroll
+      for (int pz = 0; pz < P; ++pz) {
+        T bt[Q], dt[Q];
+        bdt_row<V, QV>(pz, rB, rD, sBT, sDT, bt, dt);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          T a0 = T(0), a1 = T(0), a2 = T(0);
+#pragma unroll
+          for (int qz = 0; qz < Q; ++qz) {
+            a0 += bt[qz] * y[3 * c + 0][qz];
+            a1 += bt[qz] * y[3 * c + 1][qz];
+            a2 += dt[qz] * y[3 * c + 2][qz];
+          }
+          o[(c * P + pz) * Q * Q2] = a0;
+          o[((3 + c) * P + pz) * Q * Q2] = a1;
+          o[((6 + c) * P + pz) * Q * Q2] = a2;
+        }
+      }
+    }
+    __syncwarp();
+
+    // ---- adjoint y: position (pz, qx) -> a1 0 = B_y^T a2 0,
+    // 1 = D_y^T a2 1 + B_y^T a2 2 at every py ----
+    for (int i = lane; i < ne * P * Q; i += 32) {
+      const int e = i / (P * Q);
+      const int j = i - e * (P * Q);  // pz * Q + qx
+      T y[9][Q];
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        ld_row<2>(bufA + e * A2 + k * P * Q * Q2 + j * Q2, y[k]);
+      const int pz = j / Q;
+      T* o = bufB + e * A1 + pz * P * Q2 + (j - pz * Q);
+#pragma unroll
+      for (int py = 0; py < P; ++py) {
+        T bt[Q], dt[Q];
+        bdt_row<V, QV>(py, rB, rD, sBT, sDT, bt, dt);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          T s0 = T(0), s1 = T(0);
+#pragma unroll
+          for (int qy = 0; qy < Q; ++qy) {
+            s0 += bt[qy] * y[c][qy];
+            s1 += dt[qy] * y[3 + c][qy] + bt[qy] * y[6 + c][qy];
+          }
+          o[c * P * P * Q2 + py * Q2] = s0;
+          o[(3 + c) * P * P * Q2 + py * Q2] = s1;
+        }
+      }
+    }
+    // the ids have landed: the next tile's values land during adjoint x
+    if (kPrefetch && next < ntiles) gather_values(val, node, u, N);
+    __syncwarp();
+
+    // ---- adjoint x: position (pz, py) -> ve = D_x^T a1 0 + B_x^T a1 1 at
+    // every px, staged per component ----
+    for (int i = lane; i < ne * P * P; i += 32) {
+      const int e = i / (P * P);
+      const int r = i - e * (P * P);  // pz * P + py
+      T x0[3][Q], x1[3][Q];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        ld_row<2>(bufB + e * A1 + c * P * P * Q2 + r * Q2, x0[c]);
+        ld_row<2>(bufB + e * A1 + (3 + c) * P * P * Q2 + r * Q2, x1[c]);
+      }
+      T* o = ve + ((size_t)e0 + e) * P3 + r * P;
+#pragma unroll
+      for (int px = 0; px < P; ++px) {
+        T bt[Q], dt[Q];
+        bdt_row<V, QV>(px, rB, rD, sBT, sDT, bt, dt);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          T acc = T(0);
+#pragma unroll
+          for (int qx = 0; qx < Q; ++qx)
+            acc += dt[qx] * x0[c][qx] + bt[qx] * x1[c][qx];
+          o[c * plane_ve + px] = acc;
+        }
+      }
+    }
+  }
 }
 
-// Static shared memory of one block (sB, sD, ue, t1, t2, dvs above).
-template <int P, int Q, typename T>
-constexpr size_t shared_bytes() {
-  return sizeof(T) * (2 * Q * P + 3 * P * P * P + 2 * 3 * P * P * Q +
-                      3 * 3 * P * Q * Q + 9 * Q * Q * Q);
+// Raises a kernel's dynamic shared memory limit (above 48 KB it must be) and
+// asks for the largest shared-memory carveout.
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// Launches one instance; returns the CUDA error of its set-up (the launch's
+// own is read by cps_fused_apply).
+template <int PH, bool JAC, int P, int Q, typename T>
+cudaError_t launch(const void* u, long long N, const void* conn, int nelem,
+                   const void* qdata, const void* B, const void* D,
+                   void* stash, void* ve, double a, double b,
+                   cudaStream_t stream) {
+  // set-up once for each device
+  static std::atomic<unsigned> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  const bool stash_in = JAC && Pointwise<PH>::kStash;
+  const int bulk = bulk_path(sizeof(T), nelem, Q, qdata, stash, stash_in);
+  if constexpr (block_tile(PH, JAC, P, Q, sizeof(T))) {
+    using TL = Tile<PH, JAC, P, Q, T>;
+    auto kernel = block_tile_kernel<PH, JAC, P, Q, T>;
+    if (!(ready.load() >> dev & 1u)) {
+      err = prepare(kernel, TL::plan.smem);
+      if (err != cudaSuccess) return err;
+      ready.fetch_or(1u << dev);
+    }
+    const int tiles = (nelem + TL::plan.elems - 1) / TL::plan.elems;
+    if (tiles == 0) return cudaSuccess;
+    kernel<<<tiles, TL::plan.threads, TL::plan.smem, stream>>>(
+        static_cast<const T*>(u), N, static_cast<const long long*>(conn),
+        nelem, static_cast<const T*>(qdata), static_cast<const T*>(B),
+        static_cast<const T*>(D), static_cast<T*>(stash),
+        static_cast<T*>(ve), T(a), T(b), bulk);
+  } else {
+    using WT = WarpTile<PH, JAC, P, Q, T>;
+    auto kernel = warp_tile_kernel<PH, JAC, P, Q, T>;
+    // the grid: as many one-warp blocks as the card holds at once
+    static int resident[32];
+    if (!(ready.load() >> dev & 1u)) {
+      int per_sm = 0, sms = 0;
+      err = prepare(kernel, WT::plan.smem);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, 32, WT::plan.smem);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err != cudaSuccess) return err;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      resident[dev] = per_sm * sms;
+      ready.fetch_or(1u << dev);
+    }
+    const int tiles = (nelem + WT::plan.elems - 1) / WT::plan.elems;
+    if (tiles == 0) return cudaSuccess;
+    const int grid = tiles < resident[dev] ? tiles : resident[dev];
+    kernel<<<grid, 32, WT::plan.smem, stream>>>(
+        static_cast<const T*>(u), N, static_cast<const long long*>(conn),
+        nelem, static_cast<const T*>(qdata), static_cast<const T*>(B),
+        static_cast<const T*>(D), static_cast<T*>(stash),
+        static_cast<T*>(ve), T(a), T(b), bulk);
+  }
+  return cudaSuccess;
 }
 
 template <int PH, int P, int Q>
-void launch_pq(int jacobian, int is_double, const void* u, long long N,
-               const void* conn, int nelem, const void* qdata, const void* B,
-               const void* D, void* stash, void* ve, double a, double b,
-               cudaStream_t s) {
-  static_assert(shared_bytes<P, Q, double>() <= 48 * 1024,
-                "static shared memory above 48 KB per block");
+cudaError_t launch_pq(int jacobian, int is_double, const void* u, long long N,
+                      const void* conn, int nelem, const void* qdata,
+                      const void* B, const void* D, void* stash, void* ve,
+                      double a, double b, cudaStream_t s) {
   if (is_double) {
-    if (jacobian) launch<PH, true, P, Q, double>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
-    else launch<PH, false, P, Q, double>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
-  } else {
-    if (jacobian) launch<PH, true, P, Q, float>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
-    else launch<PH, false, P, Q, float>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
+    if (jacobian) return launch<PH, true, P, Q, double>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
+    return launch<PH, false, P, Q, double>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
   }
+  if (jacobian) return launch<PH, true, P, Q, float>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
+  return launch<PH, false, P, Q, float>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
 }
 
 // The limit is ops/fused_apply.py's MAX_Q, passed by csrc/build.py as
-// -DCPS_FUSED_MAX_Q; at 6 the f64 blocks use 47.2 KB of static shared
-// memory.
+// -DCPS_FUSED_MAX_Q.
 #ifndef CPS_FUSED_MAX_Q
 #error "compile with -DCPS_FUSED_MAX_Q=<max Q> (csrc/build.py passes it)"
 #endif
@@ -636,21 +1548,26 @@ constexpr int q_last(int PH) {
   return PH == kIncompPressure ? 1 : FUSED_MAX_Q;
 }
 
-// Q = Qc..q_last(PH) for a fixed physics and P; false when Q has no
-// instance.
+// Whether (physics, P, Q) has an instance.
+constexpr bool has_instance(int PH, int P, int Q) {
+  return PH >= 0 && PH < kNumPhysics && P >= 2 && P <= FUSED_MAX_Q &&
+         Q >= q_first(PH, P) && Q <= q_last(PH);
+}
+
+// Q = Qc..q_last(PH) for a fixed physics and P: the set-up's CUDA error, or
+// -1 when Q has no instance.
 template <int PH, int P, int Qc = q_first(PH, P)>
-bool dispatch_q(int Q, int jacobian, int is_double, const void* u,
-                long long N, const void* conn, int nelem, const void* qdata,
-                const void* B, const void* D, void* stash, void* ve,
-                double a, double b, cudaStream_t s) {
+int dispatch_q(int Q, int jacobian, int is_double, const void* u,
+               long long N, const void* conn, int nelem, const void* qdata,
+               const void* B, const void* D, void* stash, void* ve,
+               double a, double b, cudaStream_t s) {
   if constexpr (Qc > q_last(PH)) {
-    return false;
+    return -1;
   } else {
-    if (Q == Qc) {
-      launch_pq<PH, P, Qc>(jacobian, is_double, u, N, conn, nelem, qdata, B,
-                           D, stash, ve, a, b, s);
-      return true;
-    }
+    if (Q == Qc)
+      return static_cast<int>(launch_pq<PH, P, Qc>(
+          jacobian, is_double, u, N, conn, nelem, qdata, B, D, stash, ve, a,
+          b, s));
     return dispatch_q<PH, P, Qc + 1>(Q, jacobian, is_double, u, N, conn,
                                      nelem, qdata, B, D, stash, ve, a, b, s);
   }
@@ -660,7 +1577,7 @@ bool dispatch_q(int Q, int jacobian, int is_double, const void* u,
 // (compiled with -DCPS_FUSED_PHYS=ph -DCPS_FUSED_P=p by csrc/build.py, in
 // parallel nvcc processes): unit (ph, p) defines dispatch_p<ph, p>. The
 // unit without CPS_FUSED_P sees only the declaration and holds the C entry
-// point below.
+// points below.
 #define CPS_DISPATCH_PARAMS                                                 \
   int Q, int jacobian, int is_double, const void *u, long long N,          \
       const void *conn, int nelem, const void *qdata, const void *B,       \
@@ -670,31 +1587,31 @@ bool dispatch_q(int Q, int jacobian, int is_double, const void* u,
   Q, jacobian, is_double, u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s
 
 template <int PH, int P>
-bool dispatch_p(CPS_DISPATCH_PARAMS);
+int dispatch_p(CPS_DISPATCH_PARAMS);
 
 #ifdef CPS_FUSED_P
 template <int PH, int P>
-bool dispatch_p(CPS_DISPATCH_PARAMS) {
+int dispatch_p(CPS_DISPATCH_PARAMS) {
   return dispatch_q<PH, P>(CPS_DISPATCH_ARGS);
 }
-template bool dispatch_p<CPS_FUSED_PHYS, CPS_FUSED_P>(CPS_DISPATCH_PARAMS);
+template int dispatch_p<CPS_FUSED_PHYS, CPS_FUSED_P>(CPS_DISPATCH_PARAMS);
 #else
-// P = Pc..FUSED_MAX_Q for one physics; false when P has no instance.
+// P = Pc..FUSED_MAX_Q for one physics; -1 when P has no instance.
 template <int PH, int Pc = 2>
-bool dispatch_any_p(int P, CPS_DISPATCH_PARAMS) {
+int dispatch_any_p(int P, CPS_DISPATCH_PARAMS) {
   if constexpr (Pc > FUSED_MAX_Q) {
-    return false;
+    return -1;
   } else {
     if (P == Pc) return dispatch_p<PH, Pc>(CPS_DISPATCH_ARGS);
     return dispatch_any_p<PH, Pc + 1>(P, CPS_DISPATCH_ARGS);
   }
 }
 
-// physics = PHc..kNumPhysics-1; false when the physics id is unknown.
+// physics = PHc..kNumPhysics-1; -1 when the physics id is unknown.
 template <int PHc = 0>
-bool dispatch_any(int physics, int P, CPS_DISPATCH_PARAMS) {
+int dispatch_any(int physics, int P, CPS_DISPATCH_PARAMS) {
   if constexpr (PHc >= kNumPhysics) {
-    return false;
+    return -1;
   } else {
     if (physics == PHc) return dispatch_any_p<PHc>(P, CPS_DISPATCH_ARGS);
     return dispatch_any<PHc + 1>(physics, P, CPS_DISPATCH_ARGS);
@@ -708,15 +1625,48 @@ bool dispatch_any(int physics, int P, CPS_DISPATCH_PARAMS) {
 extern "C" {
 
 // Launches one fused apply of pointwise physics `physics` on `stream`.
-// Returns cudaGetLastError() after the launch (0 on success), or -1 when
-// (physics, P, Q) has no instance.
+// Returns the CUDA error of the set-up or, after the launch,
+// cudaGetLastError() (0 on success), or -1 when (physics, P, Q) has no
+// instance.
 int cps_fused_apply(int physics, int jacobian, int P, int Q, int is_double,
                     const void* u, long long N, const void* conn, int nelem,
                     const void* qdata, const void* B, const void* D,
                     void* stash, void* ve, double a, double b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS)) return -1;
+  const int r = cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
+  if (r != 0) return r;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch cps_fused_apply makes for the same arguments, without making
+// it: out = {elements a tile, threads a block, dynamic shared memory bytes,
+// tiles (blocks), copy path (1 TMA bulk, 0 cp.async), minimum blocks an SM
+// of __launch_bounds__}. Returns 0, or -1 when (physics, P, Q) has no
+// instance.
+int cps_fused_plan(int physics, int jacobian, int P, int Q, int is_double,
+                   int nelem, const void* qdata, const void* stash,
+                   long long* out) {
+  if (!cps::has_instance(physics, P, Q)) return -1;
+  const int tsize = is_double ? 8 : 4;
+  const bool stash_in = jacobian && cps::has_stash(physics);
+  if (cps::block_tile(physics, jacobian, P, Q, tsize)) {
+    const cps::TilePlan t = cps::tile_plan(P, Q, tsize, stash_in ? 19 : 10,
+                                           physics == cps::kIncompPressure);
+    out[0] = t.elems;
+    out[1] = t.threads;
+    out[2] = static_cast<long long>(t.smem);
+    out[5] = t.min_blocks;
+  } else {
+    const cps::WarpPlan w =
+        cps::warp_plan(P, Q, tsize, cps::warp_planes(physics, jacobian));
+    out[0] = w.elems;
+    out[1] = 32;
+    out[2] = static_cast<long long>(w.smem);
+    out[5] = w.min_blocks;
+  }
+  out[3] = (nelem + out[0] - 1) / out[0];
+  out[4] = cps::bulk_path(tsize, nelem, Q, qdata, stash, stash_in) ? 1 : 0;
+  return 0;
 }
 
 }  // extern "C"

@@ -19,7 +19,15 @@ takes it as a template parameter (ids shared with csrc/fused_apply.cu).
 `residual` and `jacobian` choose by the device of their input: a CPU tensor
 takes the plain version; a CUDA tensor launches the kernel, and raises if
 the kernel cannot be built or has no instance for its (physics, P, Q,
-dtype). There is no fallback from CUDA to the plain version.
+dtype). There is no fallback from CUDA to the plain version. A launch
+feeds the kernel's per-point streams into shared memory by TMA bulk
+copies or by cp.async, as `copy_path` says (the kernel decides by the same
+rule); `COUNTS.by_path` counts each. `plan` reports the launch the kernel
+makes (tile, threads, shared memory, copy path).
+
+`min_bytes` and `min_flops` count what one apply must move and compute,
+from shapes alone; `bound_ms` turns them into the least time the card
+could take (the H100's published rates).
 
 Outputs are E-vectors (3, nelem, P3); the owner-sum to the L-vector is
 ops/restriction.Restriction.scatter_add. The stash is one contiguous
@@ -66,6 +74,10 @@ class Pointwise:
     residual_planes: Callable
     jacobian_planes: Callable
     params: Callable[[Physics], tuple[float, float]]
+    # flops a quadrature point, (residual, J.v): the pointwise physics and
+    # its wrapper (du X, P X^T, the wdetJ scaling: 99), counted by hand in
+    # csrc/fused_apply.cu, one per add, multiply or divide
+    flops: tuple[int, int]
     stash: bool = True
     instances: frozenset = INSTANTIATED_PQ
 
@@ -76,16 +88,18 @@ def _lam_mu(phys: Physics) -> tuple[float, float]:
 
 PHYSICS = {pw.name: pw for pw in (
     Pointwise("hyperFS", 0, hyper_fs.residual_planes,
-              hyper_fs.jacobian_planes, _lam_mu),
+              hyper_fs.jacobian_planes, _lam_mu, (362, 616)),
     Pointwise("linElas", 1, lin_elas.residual_planes,
-              lin_elas.jacobian_planes, lin_elas.voigt_params, stash=False),
+              lin_elas.jacobian_planes, lin_elas.voigt_params, (140, 140),
+              stash=False),
     Pointwise("hyperSS", 2, hyper_ss.residual_planes,
-              hyper_ss.jacobian_planes, lambda p: (p.lam, p.two_mu)),
+              hyper_ss.jacobian_planes, lambda p: (p.lam, p.two_mu),
+              (147, 138)),
     Pointwise("hyperFSIncomp", 3, hyper_fs_incomp.residual_planes,
-              hyper_fs_incomp.jacobian_planes, _lam_mu),
+              hyper_fs_incomp.jacobian_planes, _lam_mu, (325, 550)),
     Pointwise(hyper_fs_incomp.pressure_name, 4,
               hyper_fs_incomp.pressure_residual_planes,
-              hyper_fs_incomp.pressure_jacobian_planes, _lam_mu,
+              hyper_fs_incomp.pressure_jacobian_planes, _lam_mu, (299, 553),
               instances=REDUCED_PQ),
 )}
 
@@ -102,9 +116,9 @@ def pointwise(physics: str | Pointwise) -> Pointwise:
 
 
 class LaunchCounts:
-    """Kernel launches per mode, per (mode, P, Q) and per (physics, mode,
-    P, Q), counted where the wrapper launches. Launch bookkeeping only:
-    nothing reads it to decide anything."""
+    """Kernel launches per mode, per (mode, P, Q), per (physics, mode, P, Q)
+    and per (mode, copy path), counted where the wrapper launches. Launch
+    bookkeeping only: nothing reads it to decide anything."""
 
     def __init__(self):
         self.reset()
@@ -114,8 +128,10 @@ class LaunchCounts:
         self.jacobian_launches = 0
         self.by_pq = {}             # ("residual" | "jacobian", P, Q) -> n
         self.by_physics = {}        # (physics, mode, P, Q) -> n
+        self.by_path = {}           # (mode, "bulk" | "async") -> n
 
-    def add(self, mode: str, basis: Basis3D, physics: str = "hyperFS"):
+    def add(self, mode: str, basis: Basis3D, physics: str = "hyperFS",
+            path: str = "bulk"):
         if mode == "residual":
             self.residual_launches += 1
         else:
@@ -124,9 +140,72 @@ class LaunchCounts:
         self.by_pq[key] = self.by_pq.get(key, 0) + 1
         key = (physics, *key)
         self.by_physics[key] = self.by_physics.get(key, 0) + 1
+        key = (mode, path)
+        self.by_path[key] = self.by_path.get(key, 0) + 1
 
 
 COUNTS = LaunchCounts()
+
+
+# ---------------------------------------------------------------------------
+# the bound from shapes
+# ---------------------------------------------------------------------------
+# NVIDIA H100 SXM, published: HBM3 bytes/s; f32 and f64 FLOP/s outside the
+# tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def min_bytes(physics, mode: str, P: int, Q: int, nelem: int,
+              num_nodes: int, dtype) -> int:
+    """Bytes one apply must move, each input read once and each output
+    written once: qdata (10 words a point), the stash (9 a point, read by
+    J.v, written by the residual; none for linElas), u (3 words a node),
+    conn (int64, P^3 an element) and ve (3 P^3 words an element)."""
+    pw = pointwise(physics)
+    if mode not in ("residual", "jacobian"):
+        raise ValueError(f"mode is residual or jacobian, not {mode!r}")
+    w = torch.empty((), dtype=dtype).element_size()
+    points = nelem * Q ** 3
+    nodal = nelem * P ** 3
+    stash = 9 * points if pw.stash else 0
+    return (w * (10 * points + stash + 3 * num_nodes + 3 * nodal)
+            + 8 * nodal)
+
+
+def min_flops(physics, mode: str, P: int, Q: int, nelem: int) -> int:
+    """Flops of one apply: the sum-factorized contractions (an FMA counts
+    2) and the pointwise physics (Pointwise.flops) at every point."""
+    pw = pointwise(physics)
+    forward = 3 * P * P * Q * 2 * P + 3 * P * Q * Q * 3 * P + Q ** 3 * 9 * P
+    adjoint = Q ** 3 * 9 * P + 3 * P * P * Q * 3 * Q + 3 * P ** 3 * 2 * Q
+    point = pw.flops[0 if mode == "residual" else 1]
+    return nelem * (2 * (forward + adjoint) + Q ** 3 * point)
+
+
+def bound_ms(physics, mode: str, P: int, Q: int, nelem: int,
+             num_nodes: int, dtype) -> tuple[float, str]:
+    """(the least ms the H100 could take for one apply, "bytes" or
+    "operations": which of the two bounds it)."""
+    t_bytes = min_bytes(physics, mode, P, Q, nelem, num_nodes,
+                        dtype) / H100_BYTES_PER_S
+    t_ops = min_flops(physics, mode, P, Q, nelem) / H100_FLOPS[dtype]
+    return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else \
+        (1e3 * t_ops, "operations")
+
+
+def copy_path(qdata: torch.Tensor, stash_in: torch.Tensor | None) -> str:
+    """How a launch feeds its per-point streams (qdata; in J.v the stash)
+    into shared memory: "bulk" (TMA bulk copies) when each starts 16-byte
+    aligned and a plane (nelem Q^3 words) is a multiple of 16 bytes, so
+    that every tile's slice is too; else "async" (cp.async, word by word).
+    csrc/fused_apply.cu's bulk_path is the same rule."""
+    plane = qdata.shape[1] * qdata.shape[2] * qdata.element_size()
+    ptrs = [qdata.data_ptr()]
+    if stash_in is not None:
+        ptrs.append(stash_in.data_ptr())
+    aligned = plane % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    return "bulk" if aligned else "async"
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +253,43 @@ def _library():
         c_ptr,                                 # stream
     ]
     lib.cps_fused_apply.restype = c_int
+    lib.cps_fused_plan.argtypes = [
+        c_int, c_int, c_int, c_int, c_int,     # physics, jacobian, P, Q, f64
+        c_int, c_ptr, c_ptr,                   # nelem, qdata, stash
+        ctypes.POINTER(ctypes.c_longlong),     # out[6]
+    ]
+    lib.cps_fused_plan.restype = c_int
     return lib
+
+
+@dataclass(frozen=True)
+class Plan:
+    """The launch the kernel makes for one apply (csrc cps_fused_plan)."""
+
+    elems: int          # elements a tile (one tile a block)
+    threads: int        # threads a block
+    smem: int           # dynamic shared memory a block, bytes
+    tiles: int          # blocks
+    path: str           # "bulk" | "async"
+    min_blocks: int     # resident blocks an SM that __launch_bounds__ asks
+
+
+def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
+         physics: str | Pointwise = "hyperFS", lib=None) -> Plan:
+    """The kernel's own launch plan for these inputs (needs the built
+    library; no launch)."""
+    pw = pointwise(physics)
+    lib = lib or _library()
+    out = (ctypes.c_longlong * 6)()
+    r = lib.cps_fused_plan(
+        pw.kernel_id, int(jacobian), basis.P, basis.Q,
+        _DTYPES[qdata.dtype], qdata.shape[1], qdata.data_ptr(),
+        None if stash_in is None else stash_in.data_ptr(), out)
+    if r != 0:
+        raise NotImplementedError(f"fused apply has no instance for P="
+                                  f"{basis.P}, Q={basis.Q} of {pw.name}")
+    e, t, sm, tiles, bulk, mb = out
+    return Plan(e, t, sm, tiles, "bulk" if bulk else "async", mb)
 
 
 def _check(u, conn, qdata, basis: Basis3D, stash,
@@ -219,8 +334,10 @@ def _check(u, conn, qdata, basis: Basis3D, stash,
 
 
 def _launch(jacobian: bool, u, conn, qdata, basis, stash, ve, phys,
-            pw: Pointwise):
-    lib = _library()
+            pw: Pointwise, lib=None):
+    """One launch of `lib`'s cps_fused_apply (the package's own library
+    unless another is given); raises on a CUDA error."""
+    lib = lib or _library()
     a, b = pw.params(phys)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
@@ -255,7 +372,7 @@ def residual(u, conn, qdata, basis: Basis3D, phys: Physics,
                          device=u.device) if pw.stash else None)
     _check(u, conn, qdata, basis, stash, pw)
     _launch(False, u, conn, qdata, basis, stash, ve, phys, pw)
-    COUNTS.add("residual", basis, pw.name)
+    COUNTS.add("residual", basis, pw.name, copy_path(qdata, None))
     return ve, stash
 
 
@@ -271,5 +388,5 @@ def jacobian(v, conn, qdata, stash, basis: Basis3D, phys: Physics,
     ve = torch.empty((3, conn.shape[0], basis.P3), dtype=v.dtype,
                      device=v.device)
     _launch(True, v, conn, qdata, basis, stash, ve, phys, pw)
-    COUNTS.add("jacobian", basis, pw.name)
+    COUNTS.add("jacobian", basis, pw.name, copy_path(qdata, stash))
     return ve

@@ -44,14 +44,21 @@ SUBSTEP_RETRIES = 4
 
 
 def select_device(device=None) -> torch.device:
-    """Resolve the compute device: the given one, else CUDA when available,
-    else the CPU. Also turns TF32 off: a TF32 contraction keeps ~3 decimal
-    digits, the same hazard that made single-pass bf16 residuals 18x noise
-    on the TPU (ceedpetscsolid_tpu/utils/precise.py)."""
+    """Resolve the compute device: the given one, else CUDA, raising when
+    no CUDA device is present (the CPU runs only when asked for by name).
+    Also turns TF32 off: a TF32 contraction keeps ~3 decimal digits, the
+    same hazard that made single-pass bf16 residuals 18x noise on the TPU
+    (ceedpetscsolid_tpu/utils/precise.py)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device (torch.cuda.is_available() is False): "
+                "ceedpetscsolid_tpu_torch runs on a GPU unless the CPU is "
+                "asked for, by Config(device='cpu') or, for the CLI, "
+                "CEEDPETSCSOLID_TORCH_DEVICE=cpu")
+        device = "cuda"
     return torch.device(device)
 
 
@@ -111,7 +118,8 @@ class Config:
     # applies the fresh Jacobian
     pc_lag: int = 1
     newton: NewtonOptions = field(default_factory=NewtonOptions)
-    # None: CUDA when available, else the CPU; dtype None: per default_dtype
+    # None: CUDA, raising without one (select_device); dtype None: per
+    # default_dtype
     device: torch.device | str | None = None
     dtype: torch.dtype | None = None
 

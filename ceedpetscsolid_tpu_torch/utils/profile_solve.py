@@ -12,7 +12,8 @@ one solve to warm up (kernel build,
 allocator), one solve without the profiler (the wall clock the busy share
 is taken against) and one under torch.profiler. It prints, per solve: the
 device kernels launched, their summed device time, the busy share (device
-time over the unprofiled solve wall), and the kernels with the most
+time over the unprofiled solve wall), the fused element apply's launches
+and device ms per mode (residual, J.v), and the kernels with the most
 launches and the most device time. With --out it also writes the
 profiler's own table per preconditioner. Needs a CUDA device.
 """
@@ -22,6 +23,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -31,6 +33,8 @@ import torch
 from ..problem import Config, ElasticityProblem, select_device
 
 TOP = 8
+# a fused-apply kernel's name: cps::<body>_kernel<physics, jacobian, P, Q, T>
+FUSED = re.compile(r"cps::\w+_kernel<\d+, (true|false), \d+, \d+, \w+>")
 
 
 def make_problem(box: int, multigrid: str, device, dtype=torch.float32,
@@ -86,6 +90,13 @@ def profile(prob: ElasticityProblem) -> dict:
         count[n] += 1
         dev_us[n] += t
     device_ms = sum(t for _, t in evs) * 1e-3
+    fused = {"residual": [0, 0.0], "jacobian": [0, 0.0]}
+    for n, t in kernels:
+        m = FUSED.search(n)
+        if m:
+            row = fused["jacobian" if m.group(1) == "true" else "residual"]
+            row[0] += 1
+            row[1] += t * 1e-3
     avgs = prof.key_averages()
     sort_key = ("self_device_time_total"          # torch >= 2.4
                 if avgs and hasattr(avgs[0], "self_device_time_total")
@@ -97,6 +108,8 @@ def profile(prob: ElasticityProblem) -> dict:
         "kernel_launches": len(kernels), "copies": len(copies),
         "device_ms": device_ms, "busy_share": device_ms * 1e-3 / wall,
         "launches_per_ksp": len(kernels) / max(info.ksp_iters, 1),
+        "fused_apply": {k: {"launches": c, "device_ms": ms}
+                        for k, (c, ms) in fused.items()},
         "top_by_launches": [(n[:60], c, dev_us[n] * 1e-3)
                             for n, c in count.most_common(TOP)],
         "top_by_device_ms": [(n[:60], count[n], t * 1e-3)
@@ -139,6 +152,9 @@ def main(argv=None) -> int:
               f"({r['launches_per_ksp']:.1f} per CG iteration), "
               f"{r['copies']} copies/memsets, device time {r['device_ms']:.3f}"
               f" ms, busy share {r['busy_share']:.4f}")
+        print("    fused apply: " + ", ".join(
+            f"{k} {v['launches']} launches {v['device_ms']:.3f} ms"
+            for k, v in r["fused_apply"].items()))
         for key in ("top_by_launches", "top_by_device_ms"):
             print(f"    {key}:")
             for n, c, ms in r[key]:

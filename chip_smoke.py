@@ -14,6 +14,14 @@ Phases, each of which raises on failure:
      float64 kernel vs float64 plain: max|diff| <= 1e-12 max|ref|;
      float32 kernel vs float64 plain: |diff| <= 2e-5 |ref| + 1e-6 max|ref|
      (float32 rounding alone reaches ~6e-7 max|ref| in the plain version);
+     then the tiles' edges (EDGE_CASES): one element (a tile larger than
+     the mesh), element counts that leave the last warp tile ragged
+     ((2,2), (3,3), (4,4) with 8, 3 and 2 elements a tile), float64 at
+     P = Q = 6, and both copy paths: TMA bulk copies where every staged
+     plane is a multiple of 16 bytes, cp.async where it is not or where
+     the streams start one word off 16 bytes (hyperFS, and hyperSS, whose
+     J.v reads its stash unstaged); the launches are counted per copy path
+     and each path must have run in both modes;
   3b. the fused apply's P < Q instances (2, 5), (3, 5), (5, 6) (a coarse
      p-multigrid level at the fine level's Gauss rule, or -qextra 1) against
      the plain version on the 4^3 box and the scrambled 4^3 box, (2, 5) and
@@ -24,11 +32,14 @@ Phases, each of which raises on failure:
      hyperSS and hyperFSIncomp's mu part at 24^3 degree 4, 4^3 degrees 2
      and 3 and the scrambled 4^3 box; hyperFSIncomp's pressure part at
      (P, 1), P = 2..5, on the 4^3 box and the scrambled 4^3 box; call and
-     device times of each at 24^3 degree 4 in float32, kernel and plain;
+     device times of each at 24^3 degree 4 in float32, kernel and plain,
+     beside the bound from shapes (fused_apply.bound_ms: each input byte
+     read once, each output byte written once, at 3.35 TB/s, or the flops
+     at 67 TFLOP/s if more) and the device time's share of it;
   4. CUDA-event times (median of 20 calls after warm-up) of kernel and plain
      version, residual and J.v, at the 24^3 degree-4 shapes, in float32: of
      one call, the host's enqueue included, and of the device's work alone
-     (utils.timing.cuda_device_ms);
+     (utils.timing.cuda_device_ms), with the bound and share as in 3c;
   5. the reference smoke flags in hyperFS form through cli.main, checked
      against the JAX package's result on the same flags;
   6. slice 1's main path: hyperFS degree 4 on a 16^3 box (823,875 DoF),
@@ -70,8 +81,11 @@ In phases 10-13 CG may exit on p.Ap <= 0 (the sign of an AMG cycle that
 stopped being SPD in float32) no more often than in the float64 twin
 (phase 12's clamp solves, whose tangents are themselves indefinite at the
 first Newton steps), and not at all elsewhere. Kernel launch counters are
-set to 0 just before each main path (phases 6-13) and read just after. Then
-one JSON line of per-kernel results, the card line, and as the last line
+set to 0 just before each main path (phases 6-13) and read just after,
+the fused apply's also per copy path. Then one JSON line of per-kernel
+results (each with its bound from this run's shapes, `bound_by`, and
+`library_ms`: bare `tab[idx]` for the probes, none for the fused apply,
+which no one PyTorch call computes), the card line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -125,6 +139,16 @@ PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
              "loop": "scripts/try_pallas_gather.py:70",
              "onehot": "scripts/try_pallas_gather.py:85"}
 FAILED = []                          # phase-3 comparisons that failed
+# phase 3's tile edges: (label, box faces, degree, misaligned streams)
+EDGE_CASES = (("1^3 p4 (one element)", (1, 1, 1), 4, False),
+              ("3^3 p4 (27 x 125 words: cp.async)", (3, 3, 3), 4, False),
+              ("4x3x2 p4 (bulk)", (4, 3, 2), 4, False),
+              ("4x3x2 p4 misaligned (cp.async)", (4, 3, 2), 4, True),
+              ("3^3 p1 (ragged tile of 8)", (3, 3, 3), 1, False),
+              ("2x2x1 p2 (ragged tile of 3)", (2, 2, 1), 2, False),
+              ("3^3 p3 (ragged tile of 2)", (3, 3, 3), 3, False),
+              ("1^3 p1 (one element, tile of 8)", (1, 1, 1), 1, False),
+              ("2^3 p5 (P = Q = 6)", (2, 2, 2), 5, False))
 
 
 def log(msg=""):
@@ -179,23 +203,39 @@ def compare(name, got, ref, f64):
     return float(err.max())
 
 
+def misaligned(t):
+    """A copy of `t` whose first word lies one word past a 16-byte
+    boundary (contiguous): the streams the TMA bulk path refuses."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def check_kernel(label, mesh, degree, device, phys, qextra=0,
-                 physics="hyperFS", q1d=None):
+                 physics="hyperFS", q1d=None, shift=False):
     """Kernel vs plain on one mesh/degree (P = degree + 1, Q = P + qextra,
     or q1d), f64 and f32; returns the f32 max abs errors (residual ve,
-    J.v). A physics without a stash (linElas) must return none."""
+    J.v). A physics without a stash (linElas) must return none. With
+    `shift` the kernel reads qdata and the stash from copies one word off
+    16 bytes."""
     import torch
 
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
     from ceedpetscsolid_tpu_torch.ops.basis import Basis3D
+
+    def moved(t):
+        return misaligned(t) if shift and t is not None else t
 
     f, q, u, v = make_case(mesh, degree, torch.float64, device, seed=degree,
                            qextra=qextra, q1d=q1d)
     conn, b64 = f.restr.conn, f.basis
     ve0, st0 = fa.residual_plain(u, conn, q, b64, phys, physics)
     jv0 = fa.jacobian_plain(v, conn, q, st0, b64, phys, physics)
-    ve, st = fa.residual(u, conn, q, b64, phys, physics)
-    jv = fa.jacobian(v, conn, q, st0, b64, phys, physics)
+    ve, st = fa.residual(u, conn, moved(q), b64, phys, physics)
+    jv = fa.jacobian(v, conn, moved(q), moved(st0), b64, phys, physics)
     torch.cuda.synchronize()
     if (st is None) != (st0 is None):
         FAILED.append(f"{label}: kernel stash {st is None}, "
@@ -206,10 +246,10 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
         compare(f"{label} f64 {nm}", a, b, True)
     f32 = torch.float32
     b32 = Basis3D.create(b64.P, b64.Q, "gauss", f32, device)
-    q32 = q.to(f32)
+    q32 = moved(q.to(f32))
     ve, st = fa.residual(u.to(f32), conn, q32, b32, phys, physics)
     jv = fa.jacobian(v.to(f32), conn, q32, None if st0 is None else
-                     st0.to(f32), b32, phys, physics)
+                     moved(st0.to(f32)), b32, phys, physics)
     torch.cuda.synchronize()
     e_r = compare(f"{label} f32 residual ve", ve, ve0, False)
     if st0 is not None:
@@ -245,8 +285,14 @@ def gather_phase(dev, card):
     to 0 just before and read just after; then every kernel against its
     plain version on gather_probe.probe_cases; then call and device times
     at the probe's shape and the production-shape gather. Returns the
-    entry point's launches, each kernel's max abs difference over the cases
-    and its times."""
+    entry point's launches, each kernel's max abs difference over the cases,
+    its times, the bare tab[idx] call's times (the one PyTorch call of the
+    same function for in-range indices) and the bound from the probe's
+    shape in ms: the table rows the indices touch read once, the indices
+    read once, the output written once, at 3.35 TB/s."""
+    import torch
+
+    from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
     from ceedpetscsolid_tpu_torch.ops import gather_probe as gp
 
     gp.COUNTS.reset()
@@ -284,10 +330,13 @@ def gather_phase(dev, card):
     tab, idx = gp.probe_inputs(dev)
     times, bare = gp.time_probes(tab, idx), gp.time_index(tab, idx)
     W, R, C = gp.PROBE_SHAPE
+    rows = int(torch.unique(idx).numel())
+    bound = 1e3 * (4 * (rows * C + R + R * C)) / fa.H100_BYTES_PER_S
     log(f"    times at ({W}, {C}) / ({R},) ({card}): one call (host enqueue "
         "included) / device alone")
     log(f"    bare tab[idx]            {bare['ms']:.4f} / "
-        f"{bare['device_ms']:.4f} ms")
+        f"{bare['device_ms']:.4f} ms; bound {bound:.5f} ms ({rows} table "
+        "rows touched)")
     for name, t in times.items():
         log(f"    gather_{name:16s} {t['ms']:.4f} / {t['device_ms']:.4f} ms  "
             f"(plain {t['plain_ms']:.4f} / {t['plain_device_ms']:.4f} ms)")
@@ -297,7 +346,7 @@ def gather_phase(dev, card):
         f"{prod['gb']:.4f} GB): gather_loop {prod['ms']:.4f} ms "
         f"({prod['gbps']:.1f} GB/s), index_select {prod['plain_ms']:.4f} ms "
         f"({prod['plain_gbps']:.1f} GB/s) ({card})")
-    return launches, errs, times
+    return launches, errs, times, bare, bound
 
 
 def main():
@@ -364,6 +413,7 @@ def main():
     # ---- 3. kernel vs plain ---------------------------------------------
     phys = Physics(nu=0.3, E=1.0)
     log("[3] kernel vs plain version")
+    fa.COUNTS.reset()
     n = KERNEL_BOX
     errs = check_kernel(f"{n}^3 p4 box", box_mesh((n, n, n)), 4, dev, phys)
     for deg in (2, 3):
@@ -375,6 +425,17 @@ def main():
     for deg in (1, 2):      # phase 7's p = 1 and p = 2 levels, (2,2), (3,3)
         errs += check_kernel(f"{m}^3 p{deg} box", box_mesh((m, m, m)), deg,
                              dev, phys)
+    for label, faces, deg, shift in EDGE_CASES:
+        errs += check_kernel(label, box_mesh(faces), deg, dev, phys,
+                             shift=shift)
+        # hyperSS's J.v reads its stash from global memory, not staged
+        check_kernel(f"{label} hyperSS", box_mesh(faces), deg, dev, phys,
+                     physics="hyperSS", shift=shift)
+    paths = dict(fa.COUNTS.by_path)
+    log(f"    launches per copy path: {paths}")
+    if min(paths.get((m_, p_), 0) for m_ in ("residual", "jacobian")
+           for p_ in ("bulk", "async")) < 1:
+        raise AssertionError(f"a copy path did not run in both modes: {paths}")
     log("[3b] P < Q instances vs plain version")
     k = FINE_LEVEL_BOX
     for P, Q in PQ_LESS:
@@ -443,11 +504,16 @@ def main():
         }
         t = {k: time_ms(fn) for k, fn in calls.items()}
         d = {k: device_ms(fn, reps=10, inner=1) for k, fn in calls.items()}
-        ptimes[ph] = (t, d)
+        bounds = {mode: fa.bound_ms(ph, mode, b.P, b.Q, f.nelem,
+                                    f.space.num_nodes, torch.float32)
+                  for mode in ("residual", "jacobian")}
+        ptimes[ph] = (t, d, bounds)
         for mode in ("residual", "jacobian"):
+            bd, by = bounds[mode]
             log(f"    {ph:24s} ({b.P},{b.Q}) {mode:8s} {t[mode]:.4f} / "
                 f"{d[mode]:.4f} ms  (plain {t[mode + '_plain']:.4f} / "
-                f"{d[mode + '_plain']:.4f} ms)")
+                f"{d[mode + '_plain']:.4f} ms)  bound {bd:.4f} ms ({by}), "
+                f"share {bd / d[mode]:.3f}")
         del f, q, u, v, st, calls
     torch.cuda.empty_cache()
 
@@ -471,9 +537,16 @@ def main():
     # fill the launch queue, and the host then waits on the held stream
     dtimes = {k: device_ms(calls[k], reps=10, inner=1) for k in
               ("residual", "residual_plain", "jacobian", "jacobian_plain")}
+    bounds = {mode: fa.bound_ms("hyperFS", mode, b.P, b.Q, f.nelem,
+                                f.space.num_nodes, torch.float32)
+              for mode in ("residual", "jacobian")}
     log(f"[4] times at {n}^3 p4, float32, {ndof} DoF ({card})")
     for k, t in times.items():
         dev_t = f"  device {dtimes[k]:9.4f} ms" if k in dtimes else ""
+        if k in bounds:
+            bd, by = bounds[k]
+            dev_t += (f"  bound {bd:.4f} ms ({by}), share "
+                      f"{bd / dtimes[k]:.3f}")
         log(f"    {k:20s} {t:9.4f} ms  {1e-3 * ndof / t:10.1f} MDoF/s{dev_t}")
     del f, q, u, v, st, res_op, jac_op, calls
     torch.cuda.empty_cache()
@@ -500,8 +573,12 @@ def main():
         fa.COUNTS.reset()
         info = prob.solve()
         counts = dict(fa.COUNTS.by_physics if by_physics else fa.COUNTS.by_pq)
+        last_paths.clear()
+        last_paths.update(fa.COUNTS.by_path)
         return prob, info, counts, prob.mms_error(info.u), \
             prob.strain_energy(info.u)
+
+    last_paths = {}         # the last solve's fused-apply launches per path
 
     def report(tag, prob, info, counts, err, energy):
         log(f"{tag} {info.dofs} DoF, levels {prob.level_degrees}, setup "
@@ -515,6 +592,7 @@ def main():
         log("    kernel launches: " + ", ".join(
             f"{' '.join(map(str, key[:-2]))} (P,Q)=({key[-2]},{key[-1]}) {k}"
             for key, k in sorted(counts.items())))
+        log(f"    fused-apply launches per copy path: {last_paths}")
         if not info.converged or not math.isfinite(err):
             raise AssertionError(f"{tag} solve did not converge")
 
@@ -600,7 +678,7 @@ def main():
     del prob, info
 
     # ---- 9. row-gather probes ---------------------------------------------
-    launches9, gerr, gtimes = gather_phase(dev, card)
+    launches9, gerr, gtimes, gbare, gbound = gather_phase(dev, card)
     main_counts = [c6, c7, c8]          # by (mode, P, Q), hyperFS only
 
     def need(tag, counts, keys):
@@ -640,7 +718,8 @@ def main():
         f"relative, tolerance {REFERENCE_L2_RTOL})")
     amg_report(prob, info)
     log("    kernel launches: " + ", ".join(
-        f"{ph} {m} ({P},{Q}) {k}" for (ph, m, P, Q), k in sorted(c10.items())))
+        f"{ph} {m} ({P},{Q}) {k}" for (ph, m, P, Q), k in sorted(c10.items()))
+        + f"; per copy path {dict(fa.COUNTS.by_path)}")
     if (rc != 0 or out
             or abs(l2 - REFERENCE_L2) > REFERENCE_L2_RTOL * REFERENCE_L2):
         raise AssertionError("the reference smoke test failed on the port")
@@ -704,8 +783,8 @@ def main():
             fa.COUNTS.reset()
             i12 = p12.solve()
             runs[dtype] = (p12, i12, dict(fa.COUNTS.by_physics),
-                           p12.strain_energy(i12.u))
-        (p32, i32, c32, w32), (p64, i64, _, w64) = runs.values()
+                           p12.strain_energy(i12.u), dict(fa.COUNTS.by_path))
+        (p32, i32, c32, w32, paths32), (p64, i64, _, w64, _) = runs.values()
         log(f"[12] {name} clamp, degree 2 on {CLAMP_BOX}^3 "
             f"({i32.dofs} DoF), p-MG + AMG, float32 / float64: converged "
             f"{i32.converged} / {i64.converged}, SNES {i32.snes_iters} / "
@@ -716,7 +795,7 @@ def main():
         amg_report(p32, i32, twin=p64)
         log("    kernel launches: " + ", ".join(
             f"{ph} {m} ({P},{Q}) {k}" for (ph, m, P, Q), k in
-            sorted(c32.items())))
+            sorted(c32.items())) + f"; per copy path {paths32}")
         if not (i32.converged and i64.converged
                 and i32.snes_iters == i64.snes_iters
                 and abs(i32.ksp_iters - i64.ksp_iters) <= 0.1 * i64.ksp_iters
@@ -762,11 +841,21 @@ def main():
                     out[f"{P},{Q}"] = out.get(f"{P},{Q}", 0) + k
         return out
 
+    def bound(b, device_ms):
+        """The bound keys of a kernel entry: (ms, what bounds it) from this
+        run's shapes, and the device time's share of it."""
+        return {"bound_ms": b[0], "bound_by": b[1],
+                "bound_share": b[0] / device_ms}
+
+    # ms / plain_ms: one call, the host's enqueue included; device_ms:
+    # the device's work alone; library_ms: one PyTorch call of the same
+    # function (none computes the fused apply's)
     kernels = [
         {"name": f"fused_apply_{mode}", "route": "cuda", "source": CU_SOURCE,
          "replaces": TPU_KERNEL, "launches": launches7[mode],
          "max_abs_err": e, "ms": times[mode], "plain_ms": times[mode + "_plain"],
          "device_ms": dtimes[mode], "plain_device_ms": dtimes[mode + "_plain"],
+         **bound(bounds[mode], dtimes[mode]), "library_ms": None,
          "physics": "hyperFS", "instances": instances("hyperFS", mode)}
         for mode, e in (("residual", max(errs[0::2])),
                         ("jacobian", max(errs[1::2])))
@@ -778,13 +867,16 @@ def main():
          "plain_ms": ptimes[ph][0][mode + "_plain"],
          "device_ms": ptimes[ph][1][mode],
          "plain_device_ms": ptimes[ph][1][mode + "_plain"],
-         "physics": ph, "instances": instances(ph, mode)}
+         **bound(ptimes[ph][2][mode], ptimes[ph][1][mode]),
+         "library_ms": None, "physics": ph, "instances": instances(ph, mode)}
         for ph in (*NEW_PHYSICS, PRESSURE)
         for i, mode in enumerate(("residual", "jacobian"))
     ] + [
         {"name": f"gather_{name}", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_TPU[name], "launches": launches9[name],
-         "max_abs_err": gerr[name], **gtimes[name]}
+         "max_abs_err": gerr[name], **gtimes[name],
+         **bound((gbound, "bytes"), gtimes[name]["device_ms"]),
+         "library_ms": gbare["ms"], "library_device_ms": gbare["device_ms"]}
         for name in PROBE_TPU
     ]
     if min(k["launches"] for k in kernels) < 1:

@@ -31,6 +31,7 @@ def test_reference_smoke_matches_jax(capsys, monkeypatch):
     8; the MMS rel-L2 agree to 1e-8 relative (2.85047e-04 in the JAX
     package); the AMG hierarchy is one level (192 p = 1 DOFs)."""
     monkeypatch.setattr(tcg, "eig_start_vector", jax_start_vector)
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
     got = {}
     _spy_solve(monkeypatch, JProblem, got, "j")
     _spy_solve(monkeypatch, TProblem, got, "t")
@@ -65,9 +66,10 @@ def test_hyperss_clamp_matches_jax(monkeypatch):
     assert abs(tw - jw) <= 1e-9 * abs(jw)
 
 
-def test_pcgamg_degree1_matches_jax(capsys):
+def test_pcgamg_degree1_matches_jax(capsys, monkeypatch):
     """-degree 1 under the default schedule: PCGAMG in both CLIs (-snes_view
     names it); the same KSP count and rel-L2 to 1e-8."""
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
     flags = ["-test", "-degree", "1", "-nu", "0.3", "-E", "1",
              "-dm_plex_box_faces", "4,4,4", "-snes_view"]
     rc_j = jcli.main(list(flags))
@@ -88,9 +90,10 @@ def test_pcgamg_degree1_matches_jax(capsys):
     assert abs(te - je) <= 1e-8 * je
 
 
-def test_default_coarse_solve_is_amg(capsys):
+def test_default_coarse_solve_is_amg(capsys, monkeypatch):
     """-coarse_pc_type gamg, the default, is the AMG coarse solve; the
     -snes_view coarse line is the JAX CLI's."""
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
     cfg, _ = tcli.build_config(tcli._parse_args(
         ["-test", "-nu", "0.3", "-E", "1"]))
     assert cfg.coarse_solve == "amg"

@@ -205,3 +205,76 @@ def test_kernel_input_checks():
                        "hyperFSIncomp-pressure")
     with pytest.raises(ValueError, match="no physics"):
         fused_apply.pointwise("neoHooke")
+
+
+def test_min_bytes_counted_by_hand():
+    """The bound from shapes at 24^3, degree 4, float32 (13,824 elements,
+    Q^3 = 125 points, 912,673 nodes): qdata 69.12 MB, stash 62.208 MB,
+    u 10.952 MB, int64 conn 13.824 MB, ve 20.736 MB; 176.8 MB for hyperFS
+    in either mode (J.v reads the stash, the residual writes it), 114.6 MB
+    for linElas (no stash). Memory bounds both at 3.35 TB/s."""
+    nelem, N = 24 ** 3, 97 ** 3
+    f32 = torch.float32
+    parts = 69_120_000 + 62_208_000 + 10_952_076 + 13_824_000 + 20_736_000
+    for mode in ("residual", "jacobian"):
+        assert fused_apply.min_bytes("hyperFS", mode, 5, 5, nelem, N,
+                                     f32) == parts == 176_840_076
+        assert fused_apply.min_bytes("linElas", mode, 5, 5, nelem, N,
+                                     f32) == parts - 62_208_000
+    assert fused_apply.min_bytes("hyperFS", "jacobian", 5, 5, nelem, N,
+                                 torch.float64) == 2 * parts - 13_824_000
+    ms, by = fused_apply.bound_ms("hyperFS", "jacobian", 5, 5, nelem, N, f32)
+    assert by == "bytes" and ms == pytest.approx(0.052788, rel=1e-4)
+    ms, by = fused_apply.bound_ms("linElas", "jacobian", 5, 5, nelem, N, f32)
+    assert by == "bytes" and ms == pytest.approx(0.034218, rel=1e-4)
+    with pytest.raises(ValueError, match="mode"):
+        fused_apply.min_bytes("hyperFS", "energy", 5, 5, nelem, N, f32)
+
+
+def test_min_flops_counted_by_hand():
+    """Sum-factorized contractions at P = Q = 5: 30,000 FMAs an element
+    (forward x 3,750, y 5,625, z 5,625; adjoint z 5,625, y 5,625, x 3,750),
+    480 flops a point; plus the physics' own count a point. At 24^3 the
+    hyperFS J.v needs 1.894 GFLOP, 28 us at 67 TFLOP/s: under the memory
+    bound."""
+    nelem = 24 ** 3
+    for physics, (res, jac) in (("hyperFS", (362, 616)),
+                                ("linElas", (140, 140))):
+        assert fused_apply.min_flops(physics, "residual", 5, 5, 1) == \
+            60_000 + 125 * res
+        assert fused_apply.min_flops(physics, "jacobian", 5, 5, nelem) == \
+            nelem * (60_000 + 125 * jac)
+    # (P, Q) = (2, 5): forward 3*4*5*4 + 3*2*25*6 + 125*18 = 3,390 FMAs,
+    # adjoint 125*18 + 3*4*5*15 + 3*8*10 = 3,390
+    assert fused_apply.min_flops("hyperFS", "jacobian", 2, 5, 1) == \
+        2 * 6_780 + 125 * 616
+    # the pressure term, one point an element, (5, 1): forward x 750, y 225,
+    # z 45; adjoint z 45, y 225, x 750 FMAs
+    assert fused_apply.min_flops("hyperFSIncomp-pressure", "residual", 5, 1,
+                                 1) == 2 * 2_040 + 299
+
+
+@pytest.mark.parametrize("nelem,Q,dtype,shift,path", [
+    (13_824, 5, torch.float32, False, "bulk"),  # 24^3: planes 16-byte multiples
+    (27, 5, torch.float32, False, "async"),     # 13,500-byte planes
+    (27, 4, torch.float32, False, "bulk"),      # 64 points: 256 bytes each
+    (1, 5, torch.float32, False, "async"),
+    (2, 5, torch.float64, False, "bulk"),       # 2,000-byte planes
+    (27, 1, torch.float64, False, "async"),     # the pressure term's Q = 1
+    (32, 1, torch.float32, False, "bulk"),
+    (64, 5, torch.float32, True, "async"),      # base one word off 16 bytes
+])
+def test_copy_path(nelem, Q, dtype, shift, path):
+    """TMA bulk copies only where every staged plane starts 16-byte aligned
+    (its length and base); else cp.async. The residual stages qdata alone,
+    J.v the stash too: a misaligned stash sends J.v to cp.async."""
+    def planes(k):
+        buf = torch.zeros(k * nelem * Q ** 3 + 1, dtype=dtype)
+        return buf[int(shift):][:k * nelem * Q ** 3].view(k, nelem, Q ** 3)
+
+    q, st = planes(10), planes(9)
+    assert fused_apply.copy_path(q, None) == path
+    assert fused_apply.copy_path(q, st) == path
+    if path == "bulk":
+        off = torch.zeros(9 * nelem * Q ** 3 + 1, dtype=dtype)[1:]
+        assert fused_apply.copy_path(q, off.view(9, nelem, Q ** 3)) == "async"

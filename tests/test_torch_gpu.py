@@ -116,6 +116,84 @@ def test_pressure_kernels_match_plain(cuda, kind, degree):
     _check_physics(f, q, u, v, "hyperFSIncomp-pressure", cuda)
 
 
+def _misaligned(t):
+    """A copy of `t` one word past a 16-byte boundary (contiguous)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("physics", ["hyperFS", "linElas", "hyperSS",
+                                     "hyperFSIncomp-pressure"])
+@pytest.mark.parametrize("faces,degree,dtype,shift,paths", [
+    # float32 at (P, Q) = (5, 5), one element a warp tile, and (5, 1): one
+    # element (under the pressure term's block tile); 27, whose planes are
+    # no multiple of 16 bytes; 24, whose are; 24 through misaligned streams
+    ((1, 1, 1), 4, torch.float32, False, ("async", "async")),
+    ((3, 3, 3), 4, torch.float32, False, ("async", "async")),
+    ((4, 3, 2), 4, torch.float32, False, ("bulk", "bulk")),
+    ((4, 3, 2), 4, torch.float32, True, ("async", "async")),
+    # ragged last warp tiles: (4, 4) two elements a tile, 27 elements;
+    # (3, 3) three a tile, 4 elements; (2, 2) eight a tile, 27 and 1
+    ((3, 3, 3), 3, torch.float32, False, ("bulk", "async")),
+    ((2, 2, 1), 2, torch.float32, False, ("bulk", "bulk")),
+    ((3, 3, 3), 1, torch.float32, False, ("bulk", "async")),
+    ((1, 1, 1), 1, torch.float32, False, ("bulk", "async")),
+    # float64: 27 elements; two; P = Q = 6 (under the block tile)
+    ((3, 3, 3), 4, torch.float64, False, ("async", "async")),
+    ((2, 1, 1), 4, torch.float64, False, ("bulk", "bulk")),
+    ((3, 3, 1), 5, torch.float64, False, ("bulk", "async")),
+])
+def test_tile_edges_match_plain(cuda, physics, faces, degree, dtype, shift,
+                                paths):
+    """The tiled kernels at their edges, against the float64 plain version
+    at the tolerances of test_kernel_matches_plain: a tile larger than the
+    mesh, ragged last tiles, both copy paths (TMA bulk copies, and cp.async
+    for streams whose planes are no multiple of 16 bytes or whose base is
+    misaligned), float64 at P = Q = 6. The kernel's own plan takes the path
+    copy_path names, and the launch is counted under it; a warp tile holds
+    max(1, 32 // Q^2) elements."""
+    q1d = 1 if physics.endswith("pressure") else None
+    path = paths[1] if q1d else paths[0]
+    f = OperatorFactory(build_fespace(box_mesh(faces), degree),
+                        dtype=torch.float64, device=cuda, q1d=q1d)
+    rng = np.random.default_rng(degree)
+    u, v = (torch.as_tensor(rng.standard_normal((3, f.space.num_nodes))
+                            * 1e-3, device=cuda) for _ in range(2))
+    q, conn, b = f.compute_qdata(), f.restr.conn, f.basis
+    ve0, st0 = fa.residual_plain(u, conn, q, b, PHYS, physics)
+    jv0 = fa.jacobian_plain(v, conn, q, st0, b, PHYS, physics)
+    bt = Basis3D.create(b.P, b.Q, "gauss", dtype, cuda)
+    qt = q.to(dtype)
+    st_in = None if st0 is None else st0.to(dtype)
+    if shift:
+        qt = _misaligned(qt)
+        st_in = None if st_in is None else _misaligned(st_in)
+    assert fa.copy_path(qt, st_in) == path
+    assert fa.plan(True, qt, bt, st_in, physics).path == path
+    plan = fa.plan(False, qt, bt, None, physics)
+    assert plan.path == path
+    if q1d or (dtype == torch.float64 and b.P == 6):
+        assert plan.threads > 32            # a block tile
+    else:
+        assert (plan.elems, plan.threads) == (max(1, 32 // b.Q ** 2), 32)
+    assert plan.tiles == -(-conn.shape[0] // plan.elems)
+    fa.COUNTS.reset()
+    ve, st = fa.residual(u.to(dtype), conn, qt, bt, PHYS, physics)
+    jv = fa.jacobian(v.to(dtype), conn, qt, st_in, bt, PHYS, physics)
+    torch.cuda.synchronize()
+    assert fa.COUNTS.by_path == {("residual", path): 1, ("jacobian", path): 1}
+    pairs = [(ve, ve0), (jv, jv0)] + ([(st, st0)] if st0 is not None else [])
+    for got, ref in pairs:
+        err = (got.double() - ref).abs()
+        if dtype == torch.float64:
+            assert float(err.max() / ref.abs().max()) <= 1e-12
+        else:
+            assert bool((err <= 2e-5 * ref.abs()
+                         + 1e-6 * ref.abs().max()).all())
+
+
 def test_launch_counts_and_refusals(cuda):
     f, q, u, v = _case("box", 2, cuda)
     conn, b = f.restr.conn, f.basis
@@ -133,6 +211,9 @@ def test_launch_counts_and_refusals(cuda):
     assert fa.COUNTS.by_pq == {("residual", 3, 3): 1, ("jacobian", 3, 3): 2}
     assert fa.COUNTS.by_physics == {("hyperFS", "residual", 3, 3): 1,
                                     ("hyperFS", "jacobian", 3, 3): 2}
+    # 27 elements of 27 float64 points: no plane a multiple of 16 bytes
+    assert fa.COUNTS.by_path == {("residual", "async"): 1,
+                                 ("jacobian", "async"): 2}
     # linElas takes no stash and refuses one
     with pytest.raises(ValueError, match="no stash"):
         fa.jacobian(v, conn, q, st, b, PHYS, "linElas")

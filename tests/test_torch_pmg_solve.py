@@ -39,6 +39,7 @@ def test_cli_pmg_matches_jax(capsys, monkeypatch):
     (SNES equal, KSP within 1, rel-L2 and energy to 1e-8), and the port's
     rel-L2 is 4.693608e-02 to 1e-6."""
     monkeypatch.setattr(tcg, "eig_start_vector", jax_start_vector)
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
     got = {}
     _spy_solve(monkeypatch, JProblem, got, "j")
     _spy_solve(monkeypatch, TProblem, got, "t")

@@ -112,12 +112,14 @@ def _l2(out):
     return float(m.group(1)) if m else None
 
 
-def test_cli_smoke_matches_jax(capsys):
+def test_cli_smoke_matches_jax(capsys, monkeypatch):
     """The reference smoke flags in hyperFS form: the port's CLI returns
     what the JAX CLI returns and prints the same MMS error. (Both return 1:
     manufacturedForce.h is manufactured for linElas, whose shear term
     carries mu where hyperFS's small-strain limit carries 2 mu, so the
-    hyperFS MMS error stays near 6e-2 at any resolution.)"""
+    hyperFS MMS error stays near 6e-2 at any resolution.) The port's CLI
+    runs on the CPU because the environment asks for it."""
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
     rc_j = jcli.main(list(SMOKE))
     out_j = capsys.readouterr().out
     rc_t = tcli.main(list(SMOKE))
@@ -131,8 +133,30 @@ def test_cli_smoke_matches_jax(capsys):
     (["-view_soln", "-multigrid", "none"], "-view_soln"),
     (["-view_final_soln"], "-view_final_soln"),
 ])
-def test_cli_refuses_unported_options(flags, option):
+def test_cli_refuses_unported_options(flags, option, monkeypatch):
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
     base = ["-problem", "hyperFS", "-test", "-nu", "0.3", "-E", "1"]
     # later flags override earlier ones (dict), so `flags` wins
     with pytest.raises(NotImplementedError, match=re.escape(option)):
         tcli.main(base + flags)
+
+
+def test_device_is_cuda_unless_the_cpu_is_asked_for(monkeypatch, capsys):
+    """Without a CUDA device and without an ask for the CPU, the problem and
+    the CLI raise instead of running on the CPU; asked for the CPU
+    (Config(device="cpu"), or the CLI's environment setting), they run."""
+    from ceedpetscsolid_tpu_torch.problem import select_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv(tcli.DEVICE_ENV, raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        select_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TProblem(_cfg(TConfig))
+    with pytest.raises(RuntimeError, match=tcli.DEVICE_ENV):
+        tcli.main(list(SMOKE))
+    assert select_device("cpu") == torch.device("cpu")
+    assert TProblem(_cfg(TConfig, device="cpu")).device.type == "cpu"
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    assert tcli.main(list(SMOKE)) == 1          # as test_cli_smoke_matches_jax
+    assert _l2(capsys.readouterr().out) is not None
