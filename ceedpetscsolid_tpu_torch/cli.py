@@ -15,9 +15,11 @@ preconditioner (PCGAMG); -multigrid none is Jacobi CG.
 Runs on CUDA (float32) and raises when no CUDA device is present; the CPU
 (float64) runs only when asked for, by the environment setting
 CEEDPETSCSOLID_TORCH_DEVICE=cpu (the counterpart of the JAX CLI honouring
-JAX_PLATFORMS=cpu). Options the port does not implement yet (-mesh;
--view_soln, -view_final_soln) raise NotImplementedError; unknown options
-are reported.
+JAX_PLATFORMS=cpu). -mesh <file> reads an unstructured Exodus-II hex
+mesh (HEX8 or HEX27, its side sets the face sets -bc_clamp names) and
+reorders it for locality in place of the box. Options the port does not
+implement yet (-view_soln, -view_final_soln) raise NotImplementedError;
+unknown options are reported.
 """
 
 from __future__ import annotations

@@ -11,12 +11,15 @@
 // (ids shared with ops/fused_apply.py PHYSICS, Pointwise.kernel_id):
 //   0 hyperFS, 1 linElas (no stash: its residual writes none and its
 //   Jacobian reads none), 2 hyperSS, 3 hyperFSIncomp's deviatoric mu part,
-//   4 hyperFSIncomp's pressure part (reduced integration, Q = 1).
-// Instances: physics 0-3 at every 2 <= P <= Q <= 6, physics 4 at (P, 1) for
-// 2 <= P <= 6, f32 and f64. P = Q is a level at its own Gauss rule (the
-// fine residual and J.v, native p-multigrid levels); P < Q is a coarse level
-// at the fine level's rule or a -qextra run; P > Q = 1 is the pressure term
-// at one point per element on every level.
+//   4 hyperFSIncomp's pressure part (reduced integration, Q = 1 + qextra).
+// Template instances: physics 0-3 at every 2 <= P <= Q <= 6, physics 4 at
+// (P, 1) for 2 <= P <= 6, f32 and f64. P = Q is a level at its own Gauss
+// rule (the fine residual and J.v, native p-multigrid levels); P < Q is a
+// coarse level at the fine level's rule or a -qextra run; P > Q = 1 is the
+// pressure term at one point per element on every level. Every other
+// (physics, P, Q) runs on the generic tile, whose P and Q are run-time
+// arguments (generic_tile_kernel): the pressure term at Q = 1 + qextra > 1
+// and everything above Q = 6, as far as its shared memory fits a block.
 // Per element: gather the 3 x P^3 nodal values through `conn` (orientation is
 // already resolved by the FE-space numbering, so the TPU kernel's class rows,
 // orientation masks and selection GEMMs have no counterpart), contract to the
@@ -1445,6 +1448,261 @@ warp_tile_kernel(const T* __restrict__ u, long long N,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The generic tile (generic_tile_kernel): P and Q are run-time arguments. It
+// runs every (physics, P, Q) that the template instances above lack: the
+// pressure term at Q = 1 + qextra > 1 (P > Q on every p-multigrid level,
+// which all share that rule) and every instance above Q = 6 (degree >= 6,
+// or degree 5 with -qextra), in both modes and both types. One instance a
+// (physics, mode, type): 20 kernels in all, against the 264 of the template
+// library, so the build stays as it was.
+// A block of kGenericThreads threads takes a tile of E elements (generic_
+// plan: about a thread a quadrature point, within kGenericBudget of shared
+// memory; one element once Q^3 >= 256). Every phase gives a thread one
+// output value at a time, looping over the contracted direction in shared
+// memory, with a block barrier between phases. qdata and the stash are read
+// (and the stash written) per point straight from global memory, where
+// consecutive threads take consecutive points of the tile, so those
+// accesses coalesce; a tile's shared memory is then B, D and two buffers
+// an element, 4 (f32) or 8 (f64) bytes times
+//   2 Q P + E (max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3)),
+// 72.8 KB in f32 and 145.6 KB in f64 at (P, Q) = (10, 10). An apply whose
+// one-element tile needs more than a block may have (232,448 bytes on the
+// H100) is refused: the first is (12, 12) in f64, (15, 15) in f32.
+// What bounds it on the card: as the template instances, memory on paper;
+// in practice its shared-memory traffic (no register rows: every operand of
+// every contraction is a shared load) and its block barriers. A simple
+// kernel that is right: no register rows, no staged streams, no
+// asynchronous copies (PERF.md §6 has its times against the bound).
+// Per element (words, x fastest):
+//   buffer A: ue [c][pz][py][px] -> t2[3] [c][qy][qx][pz]
+//             -> adjoint t2[3] [c][pz][qx][qy]
+//   buffer B: t1[2] [c][pz][qx][py] -> dv[9] [qz][qy][qx]
+//             -> adjoint t1[2] [c][pz][py][qx]
+// ---------------------------------------------------------------------------
+constexpr int kGenericThreads = 256;
+constexpr int kGenericMaxElems = 64;
+constexpr size_t kGenericBudget = 64 * 1024;  // bytes a block when E > 1
+constexpr int kGenericMaxPQ = 64;             // a bound on P, Q for the plan
+
+struct GenericPlan {
+  int elems;    // E, elements a tile (one tile a block)
+  int a_words;  // buffer A an element
+  int b_words;  // buffer B an element
+  size_t smem;  // dynamic shared memory, bytes
+};
+
+__host__ __device__ constexpr GenericPlan generic_plan(int P, int Q,
+                                                       int tsize) {
+  const int a = cmax(3 * P * P * P, 9 * P * Q * Q);
+  const int b = cmax(6 * P * P * Q, 9 * Q * Q * Q);
+  const int bd = 2 * Q * P;
+  int E = cmax(1, cmin(kGenericMaxElems, kGenericThreads / (Q * Q * Q)));
+  while (E > 1 && (size_t)tsize * (bd + (size_t)E * (a + b)) > kGenericBudget)
+    --E;
+  return GenericPlan{E, a, b, (size_t)tsize * (bd + (size_t)E * (a + b))};
+}
+
+template <int PH, bool JAC, typename T>
+__global__ void __launch_bounds__(kGenericThreads)
+generic_tile_kernel(int P, int Q, int E, int A, int B1,
+                    const T* __restrict__ u, long long N,
+                    const long long* __restrict__ conn, int nelem,
+                    const T* __restrict__ qdata, const T* __restrict__ Bg,
+                    const T* __restrict__ Dg, T* __restrict__ stash,
+                    T* __restrict__ ve, T a, T b) {
+  constexpr bool kStashIn = JAC && Pointwise<PH>::kStash;
+  const int P2 = P * P, P3 = P2 * P, Q2 = Q * Q, Q3 = Q2 * Q;
+  const int T1 = 3 * P2 * Q;   // one t1 (and adjoint t1) array
+  const int T2 = 3 * Q2 * P;   // one t2 (and adjoint t2) array
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sB = reinterpret_cast<T*>(smem);  // B[q][p] at q * P + p
+  T* sD = sB + Q * P;
+  T* bufA = sD + Q * P;                // element e at e * A
+  T* bufB = bufA + E * A;              // element e at e * B1
+
+  const int tid = threadIdx.x;
+  const int NT = blockDim.x;
+  const int e0 = blockIdx.x * E;
+  const int ne = min(E, nelem - e0);
+  const size_t plane = (size_t)nelem * Q3;
+  const size_t off0 = (size_t)e0 * Q3;  // the tile's first point in a plane
+
+  // ---- B, D; the nodal gather into ue ----
+  for (int i = tid; i < Q * P; i += NT) {
+    sB[i] = Bg[i];
+    sD[i] = Dg[i];
+  }
+  const long long* ce = conn + (size_t)e0 * P3;
+  for (int i = tid; i < ne * P3; i += NT) {
+    const long long node = ce[i];
+    const int e = i / P3;
+    T* ue = bufA + e * A + (i - e * P3);
+    for (int c = 0; c < 3; ++c) ue[c * P3] = u[c * N + node];
+  }
+  __syncthreads();
+
+  // ---- forward x: t1[0] = B_x u, t1[1] = D_x u at (c, pz, qx, py) ----
+  for (int i = tid; i < ne * T1; i += NT) {
+    const int e = i / T1;
+    const int j = i - e * T1;  // ((c * P + pz) * Q + qx) * P + py
+    const int py = j % P;
+    const int qx = (j / P) % Q;
+    const int rp = j / (P * Q);  // c * P + pz
+    const T* x = bufA + e * A + (rp * P + py) * P;
+    const T* bq = sB + qx * P;
+    const T* dq = sD + qx * P;
+    T bs = T(0), ds = T(0);
+    for (int px = 0; px < P; ++px) {
+      bs += bq[px] * x[px];
+      ds += dq[px] * x[px];
+    }
+    T* o = bufB + e * B1 + j;
+    o[0] = bs;
+    o[T1] = ds;
+  }
+  __syncthreads();
+
+  // ---- forward y: t2[0] = B_y D_x u, t2[1] = D_y B_x u, t2[2] = B_y B_x u
+  // at (c, qy, qx, pz) ----
+  for (int i = tid; i < ne * T2; i += NT) {
+    const int e = i / T2;
+    const int j = i - e * T2;  // ((c * Q + qy) * Q + qx) * P + pz
+    const int pz = j % P;
+    const int qx = (j / P) % Q;
+    const int qy = (j / (P * Q)) % Q;
+    const int c = j / (P * Q2);
+    const T* x0 = bufB + e * B1 + (((c * P + pz) * Q + qx) * P);
+    const T* x1 = x0 + T1;
+    const T* bq = sB + qy * P;
+    const T* dq = sD + qy * P;
+    T bd = T(0), db = T(0), bb = T(0);
+    for (int py = 0; py < P; ++py) {
+      bd += bq[py] * x1[py];
+      db += dq[py] * x0[py];
+      bb += bq[py] * x0[py];
+    }
+    T* o = bufA + e * A + j;
+    o[0] = bd;
+    o[T2] = db;
+    o[2 * T2] = bb;
+  }
+  __syncthreads();
+
+  // ---- forward z + pointwise physics, one quadrature point of the tile a
+  // thread at a time (pt = e * Q^3 + q, q = (qz * Q + qy) * Q + qx) ----
+  for (int pt = tid; pt < ne * Q3; pt += NT) {
+    const int e = pt / Q3;
+    const int q = pt - e * Q3;
+    const int qz = q / Q2;
+    const int qxy = q - qz * Q2;  // qy * Q + qx
+    const T* bz = sB + qz * P;
+    const T* dz = sD + qz * P;
+    T du[9];
+    for (int c = 0; c < 3; ++c) {
+      const T* r0 = bufA + e * A + (c * Q2 + qxy) * P;
+      const T* r1 = r0 + T2;
+      const T* r2 = r0 + 2 * T2;
+      T a0 = T(0), a1 = T(0), a2 = T(0);
+      for (int pz = 0; pz < P; ++pz) {
+        a0 += bz[pz] * r0[pz];
+        a1 += bz[pz] * r1[pz];
+        a2 += dz[pz] * r2[pz];
+      }
+      du[3 * c + 0] = a0;
+      du[3 * c + 1] = a1;
+      du[3 * c + 2] = a2;
+    }
+    const size_t off = off0 + pt;
+    const T wdetJ = qdata[off];
+    T X[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) X[k] = qdata[(1 + k) * plane + off];
+    T dv[9], g[9];
+    if constexpr (JAC) {
+      if constexpr (kStashIn) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) g[k] = stash[k * plane + off];
+      }
+      jacobian_point<PH>(du, X, wdetJ, g, a, b, dv);
+    } else {
+      residual_point<PH>(du, X, wdetJ, a, b, dv, g);
+      if constexpr (Pointwise<PH>::kStash) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) stash[k * plane + off] = g[k];
+      }
+    }
+    T* o = bufB + e * B1 + q;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) o[k * Q3] = dv[k];
+  }
+  __syncthreads();
+
+  // ---- adjoint z: adjoint t2[0] = B_z^T dv[3c], t2[1] = B_z^T dv[3c+1],
+  // t2[2] = D_z^T dv[3c+2] at (c, pz, qx, qy) ----
+  for (int i = tid; i < ne * T2; i += NT) {
+    const int e = i / T2;
+    const int j = i - e * T2;  // ((c * P + pz) * Q + qx) * Q + qy
+    const int qy = j % Q;
+    const int qx = (j / Q) % Q;
+    const int pz = (j / Q2) % P;
+    const int c = j / (Q2 * P);
+    const T* d = bufB + e * B1 + 3 * c * Q3 + qy * Q + qx;
+    T a0 = T(0), a1 = T(0), a2 = T(0);
+    for (int qz = 0; qz < Q; ++qz) {
+      const T bt = sB[qz * P + pz], dt = sD[qz * P + pz];
+      a0 += bt * d[qz * Q2];
+      a1 += bt * d[Q3 + qz * Q2];
+      a2 += dt * d[2 * Q3 + qz * Q2];
+    }
+    T* o = bufA + e * A + j;
+    o[0] = a0;
+    o[T2] = a1;
+    o[2 * T2] = a2;
+  }
+  __syncthreads();
+
+  // ---- adjoint y: adjoint t1[0] = B_y^T t2[0], t1[1] = D_y^T t2[1] +
+  // B_y^T t2[2] at (c, pz, py, qx) ----
+  for (int i = tid; i < ne * T1; i += NT) {
+    const int e = i / T1;
+    const int j = i - e * T1;  // ((c * P + pz) * P + py) * Q + qx
+    const int qx = j % Q;
+    const int py = (j / Q) % P;
+    const int rp = j / (Q * P);  // c * P + pz
+    const T* y0 = bufA + e * A + (rp * Q + qx) * Q;
+    const T* y1 = y0 + T2;
+    const T* y2 = y0 + 2 * T2;
+    T bx = T(0), bb = T(0);
+    for (int qy = 0; qy < Q; ++qy) {
+      const T bt = sB[qy * P + py], dt = sD[qy * P + py];
+      bx += bt * y0[qy];
+      bb += dt * y1[qy] + bt * y2[qy];
+    }
+    T* o = bufB + e * B1 + j;
+    o[0] = bx;
+    o[T1] = bb;
+  }
+  __syncthreads();
+
+  // ---- adjoint x: ve = D_x^T t1[0] + B_x^T t1[1] at (c, e, pz, py, px),
+  // written straight to global memory ----
+  for (int i = tid; i < 3 * ne * P3; i += NT) {
+    const int c = i / (ne * P3);
+    const int r = i - c * (ne * P3);  // e * P^3 + (pz * P + py) * P + px
+    const int e = r / P3;
+    const int p = r - e * P3;
+    const int px = p % P;
+    const T* x0 = bufB + e * B1 + (c * P2 + p / P) * Q;
+    const T* x1 = x0 + T1;
+    T acc = T(0);
+    for (int qx = 0; qx < Q; ++qx)
+      acc += sD[qx * P + px] * x0[qx] + sB[qx * P + px] * x1[qx];
+    ve[((size_t)c * nelem + e0) * P3 + r] = acc;
+  }
+}
+
 // Raises a kernel's dynamic shared memory limit (above 48 KB it must be) and
 // asks for the largest shared-memory carveout.
 template <typename K>
@@ -1533,6 +1791,47 @@ cudaError_t launch_pq(int jacobian, int is_double, const void* u, long long N,
   return launch<PH, false, P, Q, float>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
 }
 
+// Launches the generic tile of one (physics, mode, type) at (P, Q); returns
+// the CUDA error of its set-up, or kSmemRefused when its tile needs more
+// shared memory than a block may opt in to on this device.
+constexpr int kSmemRefused = -2;
+
+template <int PH, bool JAC, typename T>
+int launch_generic(int P, int Q, const void* u, long long N, const void* conn,
+                   int nelem, const void* qdata, const void* B, const void* D,
+                   void* stash, void* ve, double a, double b,
+                   cudaStream_t stream) {
+  // set-up once for each device: the kernel may take all the shared memory
+  // a block may opt in to
+  static std::atomic<unsigned> ready{0};
+  static int optin[32];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
+  auto kernel = generic_tile_kernel<PH, JAC, T>;
+  if (!(ready.load() >> dev & 1u)) {
+    int limit = 0;
+    err = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = prepare(kernel, static_cast<size_t>(limit));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    optin[dev] = limit;
+    ready.fetch_or(1u << dev);
+  }
+  const GenericPlan g = generic_plan(P, Q, sizeof(T));
+  if (g.smem > static_cast<size_t>(optin[dev])) return kSmemRefused;
+  const int tiles = (nelem + g.elems - 1) / g.elems;
+  if (tiles == 0) return 0;
+  kernel<<<tiles, kGenericThreads, g.smem, stream>>>(
+      P, Q, g.elems, g.a_words, g.b_words, static_cast<const T*>(u), N,
+      static_cast<const long long*>(conn), nelem,
+      static_cast<const T*>(qdata), static_cast<const T*>(B),
+      static_cast<const T*>(D), static_cast<T*>(stash), static_cast<T*>(ve),
+      T(a), T(b));
+  return 0;
+}
+
 // The limit is ops/fused_apply.py's MAX_Q, passed by csrc/build.py as
 // -DCPS_FUSED_MAX_Q.
 #ifndef CPS_FUSED_MAX_Q
@@ -1573,11 +1872,19 @@ int dispatch_q(int Q, int jacobian, int is_double, const void* u,
   }
 }
 
+// Whether (physics, P, Q) runs on the generic tile: every pair without a
+// template instance (ops/fused_apply.py is_generic).
+constexpr bool generic_pq(int PH, int P, int Q) {
+  return PH >= 0 && PH < kNumPhysics && !has_instance(PH, P, Q) && P >= 2 &&
+         P <= kGenericMaxPQ && Q >= 1 && Q <= kGenericMaxPQ;
+}
+
 // The instances are split into one translation unit per (physics, P)
 // (compiled with -DCPS_FUSED_PHYS=ph -DCPS_FUSED_P=p by csrc/build.py, in
-// parallel nvcc processes): unit (ph, p) defines dispatch_p<ph, p>. The
-// unit without CPS_FUSED_P sees only the declaration and holds the C entry
-// points below.
+// parallel nvcc processes): unit (ph, p) defines dispatch_p<ph, p>; and one
+// per physics for the generic tile (-DCPS_FUSED_GENERIC=ph): unit ph defines
+// generic_any<ph>. The unit with neither sees only the declarations and
+// holds the C entry points below.
 #define CPS_DISPATCH_PARAMS                                                 \
   int Q, int jacobian, int is_double, const void *u, long long N,          \
       const void *conn, int nelem, const void *qdata, const void *B,       \
@@ -1588,13 +1895,32 @@ int dispatch_q(int Q, int jacobian, int is_double, const void* u,
 
 template <int PH, int P>
 int dispatch_p(CPS_DISPATCH_PARAMS);
+template <int PH>
+int generic_any(int P, CPS_DISPATCH_PARAMS);
 
-#ifdef CPS_FUSED_P
+#if defined(CPS_FUSED_P)
 template <int PH, int P>
 int dispatch_p(CPS_DISPATCH_PARAMS) {
   return dispatch_q<PH, P>(CPS_DISPATCH_ARGS);
 }
 template int dispatch_p<CPS_FUSED_PHYS, CPS_FUSED_P>(CPS_DISPATCH_PARAMS);
+#elif defined(CPS_FUSED_GENERIC)
+template <int PH>
+int generic_any(int P, CPS_DISPATCH_PARAMS) {
+  if (is_double) {
+    if (jacobian)
+      return launch_generic<PH, true, double>(P, Q, u, N, conn, nelem, qdata,
+                                              B, D, stash, ve, a, b, s);
+    return launch_generic<PH, false, double>(P, Q, u, N, conn, nelem, qdata,
+                                             B, D, stash, ve, a, b, s);
+  }
+  if (jacobian)
+    return launch_generic<PH, true, float>(P, Q, u, N, conn, nelem, qdata, B,
+                                           D, stash, ve, a, b, s);
+  return launch_generic<PH, false, float>(P, Q, u, N, conn, nelem, qdata, B,
+                                          D, stash, ve, a, b, s);
+}
+template int generic_any<CPS_FUSED_GENERIC>(int P, CPS_DISPATCH_PARAMS);
 #else
 // P = Pc..FUSED_MAX_Q for one physics; -1 when P has no instance.
 template <int PH, int Pc = 2>
@@ -1617,37 +1943,62 @@ int dispatch_any(int physics, int P, CPS_DISPATCH_PARAMS) {
     return dispatch_any<PHc + 1>(physics, P, CPS_DISPATCH_ARGS);
   }
 }
+
+// The generic tile of physics = PHc..kNumPhysics-1.
+template <int PHc = 0>
+int dispatch_generic(int physics, int P, CPS_DISPATCH_PARAMS) {
+  if constexpr (PHc >= kNumPhysics) {
+    return -1;
+  } else {
+    if (physics == PHc) return generic_any<PHc>(P, CPS_DISPATCH_ARGS);
+    return dispatch_generic<PHc + 1>(physics, P, CPS_DISPATCH_ARGS);
+  }
+}
 #endif
 
 }  // namespace cps
 
-#ifndef CPS_FUSED_P
+#if !defined(CPS_FUSED_P) && !defined(CPS_FUSED_GENERIC)
 extern "C" {
 
-// Launches one fused apply of pointwise physics `physics` on `stream`.
-// Returns the CUDA error of the set-up or, after the launch,
-// cudaGetLastError() (0 on success), or -1 when (physics, P, Q) has no
-// instance.
+// Launches one fused apply of pointwise physics `physics` on `stream`: the
+// template instance of (physics, P, Q) where there is one, else the generic
+// tile. Returns the CUDA error of the set-up or, after the launch,
+// cudaGetLastError() (0 on success); -1 when neither runs (physics, P, Q),
+// -2 when the generic tile needs more shared memory than a block may have.
 int cps_fused_apply(int physics, int jacobian, int P, int Q, int is_double,
                     const void* u, long long N, const void* conn, int nelem,
                     const void* qdata, const void* B, const void* D,
                     void* stash, void* ve, double a, double b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int r = cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
+  const int r =
+      cps::generic_pq(physics, P, Q)
+          ? cps::dispatch_generic(physics, P, CPS_DISPATCH_ARGS)
+          : cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
   if (r != 0) return r;
   return static_cast<int>(cudaGetLastError());
 }
 
 // The launch cps_fused_apply makes for the same arguments, without making
 // it: out = {elements a tile, threads a block, dynamic shared memory bytes,
-// tiles (blocks), copy path (1 TMA bulk, 0 cp.async), minimum blocks an SM
-// of __launch_bounds__}. Returns 0, or -1 when (physics, P, Q) has no
-// instance.
+// tiles (blocks), path (1 TMA bulk, 0 cp.async, 2 the generic tile),
+// minimum blocks an SM of __launch_bounds__}. Returns 0, or -1 when
+// (physics, P, Q) runs on neither.
 int cps_fused_plan(int physics, int jacobian, int P, int Q, int is_double,
                    int nelem, const void* qdata, const void* stash,
                    long long* out) {
-  if (!cps::has_instance(physics, P, Q)) return -1;
   const int tsize = is_double ? 8 : 4;
+  if (cps::generic_pq(physics, P, Q)) {
+    const cps::GenericPlan g = cps::generic_plan(P, Q, tsize);
+    out[0] = g.elems;
+    out[1] = cps::kGenericThreads;
+    out[2] = static_cast<long long>(g.smem);
+    out[3] = (nelem + out[0] - 1) / out[0];
+    out[4] = 2;
+    out[5] = 1;
+    return 0;
+  }
+  if (!cps::has_instance(physics, P, Q)) return -1;
   const bool stash_in = jacobian && cps::has_stash(physics);
   if (cps::block_tile(physics, jacobian, P, Q, tsize)) {
     const cps::TilePlan t = cps::tile_plan(P, Q, tsize, stash_in ? 19 : 10,

@@ -13,17 +13,21 @@ function:
 
 The pointwise physics is one of `PHYSICS` (by name): hyperFS, linElas,
 hyperSS, and hyperFSIncomp's two parts, the deviatoric mu part at full
-quadrature and the pressure part at one point per element. The CUDA kernel
+quadrature and the pressure part at Q = 1 + qextra. The CUDA kernel
 takes it as a template parameter (ids shared with csrc/fused_apply.cu).
 
 `residual` and `jacobian` choose by the device of their input: a CPU tensor
 takes the plain version; a CUDA tensor launches the kernel, and raises if
-the kernel cannot be built or has no instance for its (physics, P, Q,
-dtype). There is no fallback from CUDA to the plain version. A launch
-feeds the kernel's per-point streams into shared memory by TMA bulk
-copies or by cp.async, as `copy_path` says (the kernel decides by the same
-rule); `COUNTS.by_path` counts each. `plan` reports the launch the kernel
-makes (tile, threads, shared memory, copy path).
+the kernel cannot be built or launched. There is no fallback from CUDA to
+the plain version. A (physics, P, Q) with a template instance
+(`Pointwise.instances`) feeds its per-point streams into shared memory by
+TMA bulk copies or by cp.async, as `copy_path` says (the kernel decides by
+the same rule); every other pair runs on the generic tile, whose P and Q
+are run-time arguments (`is_generic`; `generic_plan` sizes its tile, and
+`require_fits` refuses one whose shared memory exceeds what a block may
+have). `COUNTS.by_path` counts each path: "bulk", "async", "generic".
+`plan` reports the launch the kernel makes (tile, threads, shared memory,
+path).
 
 `min_bytes` and `min_flops` count what one apply must move and compute,
 from shapes alone; `bound_ms` turns them into the least time the card
@@ -48,16 +52,28 @@ from ..models import hyper_fs, hyper_fs_incomp, hyper_ss, lin_elas
 from ..models.base import Mat3, Physics
 from .basis import Basis3D
 
-# (P, Q) instances compiled into the kernel library for the full-quadrature
-# physics: every 2 <= P <= Q <= 6, i.e. degrees 1-5 at their own Gauss rule
-# and every coarser p-multigrid level at a finer level's rule; the pressure
-# term has (P, 1) for 2 <= P <= 6. The one place the limit is set:
-# csrc/build.py passes it to nvcc as -DCPS_FUSED_MAX_Q.
+# (P, Q) template instances compiled into the kernel library for the
+# full-quadrature physics: every 2 <= P <= Q <= 6, i.e. degrees 1-5 at their
+# own Gauss rule and every coarser p-multigrid level at a finer level's rule;
+# the pressure term has (P, 1) for 2 <= P <= 6. The one place the limit is
+# set: csrc/build.py passes it to nvcc as -DCPS_FUSED_MAX_Q. Every other
+# pair runs on the generic tile.
 MAX_Q = 6
 INSTANTIATED_PQ = frozenset((P, Q) for Q in range(2, MAX_Q + 1)
                             for P in range(2, Q + 1))
 REDUCED_PQ = frozenset((P, 1) for P in range(2, MAX_Q + 1))
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+
+# The generic tile (csrc/fused_apply.cu generic_tile_kernel, generic_plan):
+# threads a block, the most elements a tile, the shared memory a tile of
+# more than one element may take, and the range of P and Q it takes. The
+# most dynamic shared memory a block of the H100 may opt in to
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin) bounds a one-element tile.
+GENERIC_THREADS = 256
+GENERIC_MAX_ELEMS = 64
+GENERIC_BUDGET = 64 * 1024
+GENERIC_MAX_PQ = 64
+H100_SMEM_PER_BLOCK = 232_448
 
 
 @dataclass(frozen=True)
@@ -67,7 +83,8 @@ class Pointwise:
     kernel_id: the template argument of csrc/fused_apply.cu; params: the
     kernel's two scalars (a, b) from the material; stash: whether the
     residual writes (and the Jacobian reads) the gradu stash; instances:
-    the (P, Q) pairs compiled for it."""
+    the (P, Q) pairs compiled as template instances for it (the generic
+    tile runs the others)."""
 
     name: str
     kernel_id: int
@@ -117,7 +134,7 @@ def pointwise(physics: str | Pointwise) -> Pointwise:
 
 class LaunchCounts:
     """Kernel launches per mode, per (mode, P, Q), per (physics, mode, P, Q)
-    and per (mode, copy path), counted where the wrapper launches. Launch
+    and per (mode, path), counted where the wrapper launches. Launch
     bookkeeping only: nothing reads it to decide anything."""
 
     def __init__(self):
@@ -128,7 +145,7 @@ class LaunchCounts:
         self.jacobian_launches = 0
         self.by_pq = {}             # ("residual" | "jacobian", P, Q) -> n
         self.by_physics = {}        # (physics, mode, P, Q) -> n
-        self.by_path = {}           # (mode, "bulk" | "async") -> n
+        self.by_path = {}           # (mode, "bulk" | "async" | "generic") -> n
 
     def add(self, mode: str, basis: Basis3D, physics: str = "hyperFS",
             path: str = "bulk"):
@@ -192,6 +209,45 @@ def bound_ms(physics, mode: str, P: int, Q: int, nelem: int,
     t_ops = min_flops(physics, mode, P, Q, nelem) / H100_FLOPS[dtype]
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else \
         (1e3 * t_ops, "operations")
+
+
+def is_generic(physics, P: int, Q: int) -> bool:
+    """Whether (physics, P, Q) runs on the generic tile: every pair without
+    a template instance (csrc/fused_apply.cu generic_pq is the same rule)."""
+    return (P, Q) not in pointwise(physics).instances
+
+
+def generic_plan(P: int, Q: int, dtype) -> tuple[int, int]:
+    """(elements a tile, dynamic shared memory bytes a block) of the
+    generic tile: B and D, and per element buffer A (ue -> t2 -> adjoint
+    t2) and buffer B (t1 -> dv -> adjoint t1); about a thread a quadrature
+    point, within GENERIC_BUDGET once a tile holds more than one element
+    (csrc/fused_apply.cu generic_plan, mirrored)."""
+    w = torch.empty((), dtype=dtype).element_size()
+    per = max(3 * P ** 3, 9 * P * Q * Q) + max(6 * P * P * Q, 9 * Q ** 3)
+    bd = 2 * Q * P
+    E = max(1, min(GENERIC_MAX_ELEMS, GENERIC_THREADS // Q ** 3))
+    while E > 1 and w * (bd + E * per) > GENERIC_BUDGET:
+        E -= 1
+    return E, w * (bd + E * per)
+
+
+def require_fits(physics, P: int, Q: int, dtype):
+    """Raise NotImplementedError when (physics, P, Q) runs on the generic
+    tile and its one-element tile needs more shared memory than an H100
+    block may have; the CUDA fused apply runs everything else."""
+    if not is_generic(physics, P, Q):
+        return
+    if not (2 <= P <= GENERIC_MAX_PQ and 1 <= Q <= GENERIC_MAX_PQ):
+        raise NotImplementedError(
+            f"fused CUDA apply takes 2 <= P <= {GENERIC_MAX_PQ} and "
+            f"1 <= Q <= {GENERIC_MAX_PQ}, not P={P}, Q={Q}")
+    _, smem = generic_plan(P, Q, dtype)
+    if smem > H100_SMEM_PER_BLOCK:
+        raise NotImplementedError(
+            f"fused CUDA apply at P={P}, Q={Q} ({dtype}): its generic tile "
+            f"needs {smem:,} bytes of shared memory a block, above the "
+            f"{H100_SMEM_PER_BLOCK:,} an H100 block may have")
 
 
 def copy_path(qdata: torch.Tensor, stash_in: torch.Tensor | None) -> str:
@@ -270,7 +326,7 @@ class Plan:
     threads: int        # threads a block
     smem: int           # dynamic shared memory a block, bytes
     tiles: int          # blocks
-    path: str           # "bulk" | "async"
+    path: str           # "bulk" | "async" | "generic"
     min_blocks: int     # resident blocks an SM that __launch_bounds__ asks
 
 
@@ -286,10 +342,10 @@ def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
         _DTYPES[qdata.dtype], qdata.shape[1], qdata.data_ptr(),
         None if stash_in is None else stash_in.data_ptr(), out)
     if r != 0:
-        raise NotImplementedError(f"fused apply has no instance for P="
+        raise NotImplementedError(f"fused apply has no kernel for P="
                                   f"{basis.P}, Q={basis.Q} of {pw.name}")
-    e, t, sm, tiles, bulk, mb = out
-    return Plan(e, t, sm, tiles, "bulk" if bulk else "async", mb)
+    e, t, sm, tiles, path, mb = out
+    return Plan(e, t, sm, tiles, ("async", "bulk", "generic")[path], mb)
 
 
 def _check(u, conn, qdata, basis: Basis3D, stash,
@@ -299,12 +355,9 @@ def _check(u, conn, qdata, basis: Basis3D, stash,
     pw = pointwise(physics)
     dev, dt = u.device, u.dtype
     P, Q = basis.P, basis.Q
-    if (P, Q) not in pw.instances:
-        raise NotImplementedError(
-            f"fused CUDA apply has no instance for P={P}, Q={Q} of "
-            f"{pw.name} (instances: {sorted(pw.instances)})")
     if dt not in _DTYPES:
         raise TypeError(f"fused CUDA apply takes float32/float64, got {dt}")
+    require_fits(pw, P, Q, dt)
     nelem = conn.shape[0]
     expect = {
         "u": (u, (3, u.shape[1]), dt),
@@ -348,8 +401,19 @@ def _launch(jacobian: bool, u, conn, qdata, basis, stash, ve, phys,
             None if stash is None else stash.data_ptr(), ve.data_ptr(),
             float(a), float(b), stream)
     if err != 0:
-        raise RuntimeError(f"fused_apply kernel launch failed: cuda error {err}"
-                           if err > 0 else "fused_apply: no kernel instance")
+        raise RuntimeError(
+            f"fused_apply kernel launch failed: cuda error {err}" if err > 0
+            else "fused_apply: the generic tile needs more shared memory than "
+            "a block may have on this device" if err == -2
+            else "fused_apply: no kernel for this (physics, P, Q)")
+
+
+def launch_path(pw: Pointwise, basis: Basis3D, qdata,
+                stash_in=None) -> str:
+    """The path a launch takes, as COUNTS.by_path counts it."""
+    if is_generic(pw, basis.P, basis.Q):
+        return "generic"
+    return copy_path(qdata, stash_in)
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -372,7 +436,7 @@ def residual(u, conn, qdata, basis: Basis3D, phys: Physics,
                          device=u.device) if pw.stash else None)
     _check(u, conn, qdata, basis, stash, pw)
     _launch(False, u, conn, qdata, basis, stash, ve, phys, pw)
-    COUNTS.add("residual", basis, pw.name, copy_path(qdata, None))
+    COUNTS.add("residual", basis, pw.name, launch_path(pw, basis, qdata))
     return ve, stash
 
 
@@ -388,5 +452,6 @@ def jacobian(v, conn, qdata, stash, basis: Basis3D, phys: Physics,
     ve = torch.empty((3, conn.shape[0], basis.P3), dtype=v.dtype,
                      device=v.device)
     _launch(True, v, conn, qdata, basis, stash, ve, phys, pw)
-    COUNTS.add("jacobian", basis, pw.name, copy_path(qdata, stash))
+    COUNTS.add("jacobian", basis, pw.name,
+               launch_path(pw, basis, qdata, stash))
     return ve

@@ -1,8 +1,10 @@
 """Problem orchestration: the framework's `main` (reference elasticity.c:45-924).
-Port of ceedpetscsolid_tpu/problem.py for the four models on box meshes.
+Port of ceedpetscsolid_tpu/problem.py for the four models on box meshes and
+unstructured Exodus-II hex meshes.
 
-Wires box mesh -> FE spaces (one per p-multigrid level) -> operators ->
-BCs -> forcing -> Newton with CG preconditioned by Jacobi
+Wires mesh (a box, or an Exodus-II file reordered for locality) -> FE
+spaces (one per p-multigrid level) -> operators -> BCs -> forcing -> Newton
+with CG preconditioned by Jacobi
 (`multigrid="none"`), by the p-multigrid V-cycle with Chebyshev-Jacobi
 smoothers and the AMG coarse solve (the default) or a Chebyshev one, or, at
 degree 1 under a multigrid schedule, by the AMG V-cycle alone (PCGAMG), and
@@ -10,8 +12,8 @@ exposes solve / postprocessing entry points. Every residual, every CG
 matvec, every level J.v and the AMG's level-0 matvec go through the fused
 element apply (ops/fused_apply.py), which on a CUDA device is the
 hand-written kernel. hyperFSIncomp is a composite operator: its deviatoric
-mu part at full quadrature plus its pressure part at one point per element,
-each with its own stash.
+mu part at full quadrature plus its pressure part at Q = 1 + qextra points
+a direction, each with its own stash.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .models import Physics, get_model, mms
 from .models.boundary import BoundaryConditions
 from .models.forcing import assemble_forcing
 from .ops.assembly import CSRAssembler, make_element_matrices
-from .ops.fused_apply import MAX_Q, PHYSICS
+from .ops.fused_apply import PHYSICS, require_fits
 from .ops.operator import OperatorFactory
 from .solve.amg import AMGPreconditioner
 from .solve.cg import estimate_extreme_eigs, pcg
@@ -72,8 +74,10 @@ def default_dtype(device: torch.device) -> torch.dtype:
 class Config:
     """CLI-equivalent options (reference src/cloptions.c:26-285).
 
-    Options the port does not implement yet raise NotImplementedError
-    naming the option; none is silently ignored. The JAX package's
+    `mesh_file` (an Exodus-II file) replaces the box. On CUDA a degree
+    whose generic fused-apply tile needs more shared memory than a block
+    may have raises NotImplementedError naming the bytes
+    (ops/fused_apply.require_fits). The JAX package's
     `pc_precision` (bf16 MXU passes inside the V-cycle) has no counterpart:
     float32 contractions here run in IEEE f32 with TF32 off."""
 
@@ -139,25 +143,15 @@ class Config:
                 f"unknown level_quadrature {self.level_quadrature!r}")
         if self.coarse_solve not in ("amg", "chebyshev"):
             raise ValueError(f"unknown coarse solve {self.coarse_solve!r}")
-        if self.mesh_file:
-            raise NotImplementedError(
-                f"-mesh {self.mesh_file}: Exodus-II meshes are not ported to "
-                "ceedpetscsolid_tpu_torch yet (box meshes only)")
         self.device = select_device(self.device)
         if self.dtype is None:
             self.dtype = default_dtype(self.device)
-        q1d = self.degree + 1 + self.qextra
-        if q1d > MAX_Q and self.device.type == "cuda":
-            raise NotImplementedError(
-                f"-qextra {self.qextra} at -degree {self.degree}: the CUDA "
-                f"fused apply is instantiated for Q <= {MAX_Q} quadrature "
-                f"points per direction, not Q = {q1d}")
-        if (self.problem == "hyperFSIncomp" and self.qextra
-                and self.device.type == "cuda"):
-            raise NotImplementedError(
-                f"-qextra {self.qextra} with -problem hyperFSIncomp: the CUDA "
-                "fused apply has its pressure term at Q = 1 only, not "
-                f"Q = {1 + self.qextra}")
+        if self.device.type == "cuda":
+            # the fine level's (P, Q) is the largest of the problem (coarse
+            # levels and the pressure term have fewer nodes or points)
+            P = self.degree + 1
+            require_fits(get_model(self.problem).name, P, P + self.qextra,
+                         self.dtype)
 
     @property
     def pascal(self) -> float:
@@ -197,7 +191,15 @@ class ElasticityProblem:
 
         # --- mesh ("DM and Vector Setup" stage, elasticity.c:128-131) ----
         with self.log.stage("DM and Vector Setup"):
-            if mesh is None:
+            if mesh is None and config.mesh_file:
+                from .mesh.exodus import read_exodus
+                from .mesh.reorder import reorder_mesh
+
+                # file order or Morton, whichever gives the smaller
+                # contiguous-block halo, and first-use vertex numbering
+                # (the JAX package's problem.py does the same)
+                mesh = reorder_mesh(read_exodus(config.mesh_file))
+            elif mesh is None:
                 mesh = box_mesh(config.box_faces, config.box_lower,
                                 config.box_upper)
             self.mesh = mesh

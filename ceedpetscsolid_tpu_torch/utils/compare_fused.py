@@ -148,7 +148,11 @@ def main(argv=None) -> int:
     out = BUILD_DIR.parent / "compare"
     parent_csrc = renamed_source(
         args.parent / "ceedpetscsolid_tpu_torch" / "csrc", out / "src")
-    path, _ = build(parent_csrc, out, FUSED_UNITS)
+    # a source from before the generic tile has no units of its own for it
+    generic = "CPS_FUSED_GENERIC" in (parent_csrc / "fused_apply.cu").read_text()
+    units = tuple(u for u in FUSED_UNITS
+                  if generic or not any("GENERIC" in f for f in u[1]))
+    path, _ = build(parent_csrc, out, units)
     parent = ctypes.CDLL(str(path))
     this = fa._library()
     parent.cps_fused_apply.argtypes = this.cps_fused_apply.argtypes

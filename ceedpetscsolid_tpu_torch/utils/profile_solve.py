@@ -33,8 +33,9 @@ import torch
 from ..problem import Config, ElasticityProblem, select_device
 
 TOP = 8
-# a fused-apply kernel's name: cps::<body>_kernel<physics, jacobian, P, Q, T>
-FUSED = re.compile(r"cps::\w+_kernel<\d+, (true|false), \d+, \d+, \w+>")
+# a fused-apply kernel's name: cps::<body>_kernel<physics, jacobian, P, Q, T>,
+# or cps::generic_tile_kernel<physics, jacobian, T>
+FUSED = re.compile(r"cps::\w+_kernel<\d+, (true|false), (?:\d+, \d+, )?\w+>")
 
 
 def make_problem(box: int, multigrid: str, device, dtype=torch.float32,

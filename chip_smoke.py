@@ -36,6 +36,14 @@ Phases, each of which raises on failure:
      beside the bound from shapes (fused_apply.bound_ms: each input byte
      read once, each output byte written once, at 3.35 TB/s, or the flops
      at 67 TFLOP/s if more) and the device time's share of it;
+  3d. the generic tile (every (physics, P, Q) without a template instance,
+     P and Q at run time) against the plain version at phase 3's
+     tolerances: the pressure term at (P, Q), P = 2..5, Q = 2, 3, on the
+     4^3 box and the scrambled 4^3 box; hyperFS and linElas at (7, 7),
+     (8, 8), (6, 7), (2, 7) on the 3^3 box; hyperFS at (10, 10) on one
+     element (float64 and float32); then call and device times, float32,
+     beside the bound, of the pressure term at (5, 2) on 24^3 and hyperFS
+     at (7, 7) on 12^3;
   4. CUDA-event times (median of 20 calls after warm-up) of kernel and plain
      version, residual and J.v, at the 24^3 degree-4 shapes, in float32: of
      one call, the host's enqueue included, and of the device's work alone
@@ -76,7 +84,23 @@ Phases, each of which raises on failure:
      twin at the same tolerances: the same SNES count, KSP within 10%,
      energy to 1e-5;
  13. PCGAMG: linElas -test degree 1 on a 32^3 box (107,811 DoF), CG
-     preconditioned by the AMG V-cycle alone, with its float64 twin.
+     preconditioned by the AMG V-cycle alone, with its float64 twin;
+ 14. hyperFSIncomp with -qextra 1: phase 12's clamp solve at degree 4 on
+     the 8^3 box (p-MG [1, 2, 4] + AMG), float32 against its float64 twin:
+     converged, energy to 1e-5, u to 1e-3, no more indefinite CG exits;
+     the SNES and KSP counts printed beside the twin's (see INCOMP_QEXTRA);
+     the pressure term runs the generic tile at (5, 2), (3, 2) and (2, 2);
+ 15. hyperFS -test at degree 6 on a 6^3 box (151,959 DoF), p-MG [1, 2, 4,
+     6] + AMG, float32, with its float64 twin: the fine level runs the
+     generic tile at (7, 7);
+ 16. the Exodus-II path at the size of phase 11: the scrambled 16^3 box
+     written as a HEX27 file (side set 998 on x = 0, 999 on x = 1, found
+     by coordinates), solved through cli.main -mesh (hyperFS degree 4,
+     clamped on 998, 999 translated, one increment, p-MG + AMG, float32),
+     against the lattice 16^3 box through the same CLI with its own face
+     ids: the same SNES count, energy and u at nodes matched by
+     coordinates to 1e-3; both KSP counts printed (the AMG aggregates by
+     ordering).
 In phases 10-13 CG may exit on p.Ap <= 0 (the sign of an AMG cycle that
 stopped being SPD in float32) no more often than in the float64 twin
 (phase 12's clamp solves, whose tangents are themselves indefinite at the
@@ -86,11 +110,13 @@ the fused apply's also per copy path. Then one JSON line of per-kernel
 results (each with its bound from this run's shapes, `bound_by`, and
 `library_ms`: bare `tab[idx]` for the probes, none for the fused apply,
 which no one PyTorch call computes), the card line, and as the last line
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
-package beside this script, it exits non-zero and prints no result.
+{"ok": true, "device": {...}}. Without a CUDA device it exits 2, without
+the package beside this script 3, and it prints no result; any other
+error propagates with its traceback.
 """
 
 import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -99,6 +125,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -132,6 +159,21 @@ CLAMP = {                            # tests/test_amg.py, tests/test_incomp.py
                           num_increments=1, multigrid="logarithmic",
                           nu_smoother=0.3),
 }
+GENERIC_PQ = ((7, 7), (8, 8), (6, 7), (2, 7))     # phase 3d, Q > 6
+# phase 14: phase 12's hyperFSIncomp clamp at degree 4 with -qextra 1. Its
+# float32 solve reaches its float64 twin's answer by another Newton path
+# (more steps: float64's are indefinite at first, float32's sit near their
+# noise floor at rtol 1e-6; the plain float32 version on the CPU too), so
+# the counts are printed beside the twin's, not held to them (PERF.md §6,
+# runs G1-G3; ROADMAP Queue 3)
+INCOMP_QEXTRA = dict(CLAMP["hyperFSIncomp"], degree=4, qextra=1)
+DEGREE6_BOX = 6                      # phase 15
+EXODUS_BOX = 16                      # phase 16
+# phase 16: hyperFS degree 4, one increment, the clamped face fixed and the
+# other translated by 1% of the box (no sub-steps)
+EXODUS_FLAGS = ["-problem", "hyperFS", "-degree", "4", "-nu", "0.3", "-E",
+                "1", "-num_steps", "1"]
+EXODUS_SHIFT = "0.01,0,0"
 CU_SOURCE = "ceedpetscsolid_tpu_torch/csrc/fused_apply.cu"
 PROBE_SOURCE = "ceedpetscsolid_tpu_torch/csrc/gather_probe.cu"
 PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
@@ -258,6 +300,74 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
     return e_r, e_j
 
 
+def write_exodus_hex27(path, mesh, side_sets):
+    """A netCDF-3 classic Exodus-II file of `mesh`, one HEX27 block (the 19
+    higher-order nodes of each element at its lattice midpoints, numbered
+    after the corners; the reader keeps the corners only) and `side_sets`
+    {id: (element, local face) pairs}."""
+    from scipy.io import netcdf_file
+
+    from ceedpetscsolid_tpu_torch.mesh.core import (
+        EXODUS_HEX8_TO_TENSOR, EXODUS_SIDE_TO_FACE)
+
+    side = {f: s for s, f in EXODUS_SIDE_TO_FACE.items()}
+    nv, ne = mesh.num_vertices, mesh.num_elements
+    xe = mesh.vertices[mesh.connectivity]                    # (e, 8, 3)
+    mids = []
+    for k, j, i in np.ndindex(3, 3, 3):
+        if 1 not in (i, j, k):
+            continue
+        w = np.array([(i / 2 if a else 1 - i / 2) * (j / 2 if b else 1 - j / 2)
+                      * (k / 2 if c else 1 - k / 2)
+                      for c in (0, 1) for b in (0, 1) for a in (0, 1)])
+        mids.append(np.einsum("v,evd->ed", w, xe))
+    coords = np.concatenate([mesh.vertices,
+                             np.stack(mids, axis=1).reshape(-1, 3)])
+    nodes = np.concatenate([mesh.connectivity[:, EXODUS_HEX8_TO_TENSOR],
+                            np.arange(nv, nv + 19 * ne).reshape(ne, 19)], 1)
+    nc = netcdf_file(str(path), "w")
+    try:
+        for name, n in (("num_dim", 3), ("num_nodes", coords.shape[0]),
+                        ("num_elem", ne), ("num_el_blk", 1),
+                        ("num_el_in_blk1", ne), ("num_nod_per_el1", 27),
+                        ("num_side_sets", len(side_sets))):
+            nc.createDimension(name, n)
+        for d, name in enumerate(("coordx", "coordy", "coordz")):
+            nc.createVariable(name, "d", ("num_nodes",))[:] = coords[:, d]
+        blk = nc.createVariable("connect1", "i",
+                                ("num_el_in_blk1", "num_nod_per_el1"))
+        blk[:] = (nodes + 1).astype(np.int32)
+        blk.elem_type = "HEX27"
+        nc.createVariable("ss_prop1", "i", ("num_side_sets",))[:] = \
+            np.array(sorted(side_sets), dtype=np.int32)
+        for i, sid in enumerate(sorted(side_sets), start=1):
+            fs = side_sets[sid]
+            nc.createDimension(f"num_side_ss{i}", fs.shape[0])
+            nc.createVariable(f"elem_ss{i}", "i", (f"num_side_ss{i}",))[:] = \
+                (fs[:, 0] + 1).astype(np.int32)
+            nc.createVariable(f"side_ss{i}", "i", (f"num_side_ss{i}",))[:] = \
+                np.array([side[int(f)] for f in fs[:, 1]], dtype=np.int32)
+    finally:
+        nc.close()
+
+
+def faces_on(mesh, axis, value):
+    """(element, local face) pairs of `mesh` on the plane x_axis = value."""
+    from ceedpetscsolid_tpu_torch.mesh.core import FACE_VERTICES
+
+    on = np.isclose(mesh.vertices[:, axis], value, atol=1e-12)
+    e, f = np.nonzero(on[mesh.connectivity[:, FACE_VERTICES]].all(axis=2))
+    return np.stack([e, f], axis=1).astype(np.int64)
+
+
+def by_coordinates(prob, u):
+    """(nodal coordinates, u as (N, 3)) sorted by coordinates, so that two
+    numberings of one mesh line up node by node."""
+    xyz = np.asarray(prob._coords)
+    order = np.lexsort(np.round(xyz, 9).T)
+    return xyz[order], u.double().cpu().numpy().T[order]
+
+
 def run_cli(flags):
     """cli.main(flags) with its standard output captured: (rc, output, the
     problem it solved, its SolveInfo)."""
@@ -359,11 +469,9 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); the port's kernels run only on a GPU", file=sys.stderr)
         return 2
-    try:
-        import ceedpetscsolid_tpu_torch  # noqa: F401
-    except ImportError as exc:
-        print(f"chip_smoke: package ceedpetscsolid_tpu_torch not found beside "
-              f"this script ({exc})", file=sys.stderr)
+    if importlib.util.find_spec("ceedpetscsolid_tpu_torch") is None:
+        print("chip_smoke: package ceedpetscsolid_tpu_torch not found beside "
+              "this script", file=sys.stderr)
         return 3
     from ceedpetscsolid_tpu_torch import cli, native
     from ceedpetscsolid_tpu_torch.csrc.build import build
@@ -514,6 +622,66 @@ def main():
                 f"{d[mode]:.4f} ms  (plain {t[mode + '_plain']:.4f} / "
                 f"{d[mode + '_plain']:.4f} ms)  bound {bd:.4f} ms ({by}), "
                 f"share {bd / d[mode]:.3f}")
+        del f, q, u, v, st, calls
+    torch.cuda.empty_cache()
+
+    # ---- 3d. the generic tile vs plain version -----------------------------
+    log("[3d] the generic tile (P, Q at run time) vs plain version")
+    fa.COUNTS.reset()
+    generr = {PRESSURE: (), "hyperFS": (), "linElas": ()}
+    for P in range(2, 6):
+        for Q in (2, 3):
+            for label, mesh in (("box", box_mesh((4, 4, 4))),
+                                ("scrambled",
+                                 scrambled_box_mesh((4, 4, 4), 4))):
+                generr[PRESSURE] += check_kernel(
+                    f"4^3 (P,Q)=({P},{Q}) {label} pressure", mesh, P - 1,
+                    dev, phys, physics=PRESSURE, q1d=Q)
+    for P, Q in GENERIC_PQ:
+        for ph in ("hyperFS", "linElas"):
+            generr[ph] += check_kernel(f"3^3 (P,Q)=({P},{Q}) box {ph}",
+                                     box_mesh((3, 3, 3)), P - 1, dev, phys,
+                                     physics=ph, q1d=Q)
+    generr["hyperFS"] += check_kernel("1^3 (P,Q)=(10,10) box",
+                                    box_mesh((1, 1, 1)), 9, dev, phys,
+                                    q1d=10)
+    if FAILED:
+        raise AssertionError(f"kernel disagrees with plain version: {FAILED}")
+    paths = dict(fa.COUNTS.by_path)
+    log(f"    launches per path: {paths}")
+    if set(paths) != {("residual", "generic"), ("jacobian", "generic")}:
+        raise AssertionError(f"phase 3d ran another path: {paths}")
+    gtimes3d = {}
+    log(f"    times, float32 ({card}): call (host enqueue included) / "
+        "device alone")
+    for ph, box, deg, Q in ((PRESSURE, n, 4, 2), ("hyperFS", 12, 6, 7)):
+        f, q, u, v = make_case(box_mesh((box,) * 3), deg, torch.float32,
+                               dev, deg, q1d=Q)
+        conn, b = f.restr.conn, f.basis
+        _, st = fa.residual_plain(u, conn, q, b, phys, ph)
+        calls = {
+            "residual": lambda: fa.residual(u, conn, q, b, phys, ph),
+            "residual_plain": lambda: fa.residual_plain(u, conn, q, b, phys,
+                                                        ph),
+            "jacobian": lambda: fa.jacobian(v, conn, q, st, b, phys, ph),
+            "jacobian_plain": lambda: fa.jacobian_plain(v, conn, q, st, b,
+                                                        phys, ph),
+        }
+        t = {k: time_ms(fn) for k, fn in calls.items()}
+        d = {k: device_ms(fn, reps=10, inner=1) for k, fn in calls.items()}
+        bounds = {mode: fa.bound_ms(ph, mode, b.P, b.Q, f.nelem,
+                                    f.space.num_nodes, torch.float32)
+                  for mode in ("residual", "jacobian")}
+        gtimes3d[ph] = (t, d, bounds, (b.P, b.Q, box))
+        plan = fa.plan(False, q, b, None, ph)
+        for mode in ("residual", "jacobian"):
+            bd, by = bounds[mode]
+            log(f"    {ph:24s} ({b.P},{b.Q}) {box}^3 {mode:8s} "
+                f"{t[mode]:.4f} / {d[mode]:.4f} ms  (plain "
+                f"{t[mode + '_plain']:.4f} / {d[mode + '_plain']:.4f} ms)  "
+                f"bound {bd:.4f} ms ({by}), share {bd / d[mode]:.3f}")
+        log(f"      tile: {plan.elems} element(s), {plan.threads} threads, "
+            f"{plan.smem} bytes of shared memory, {plan.tiles} blocks")
         del f, q, u, v, st, calls
     torch.cuda.empty_cache()
 
@@ -773,44 +941,56 @@ def main():
     main_counts.append(c12)
     del prob, info
     torch.cuda.empty_cache()
-    for name, kw in CLAMP.items():
+    def clamp_pair(tag, name, kw, keys, counts=True):
+        """A clamp solve on the CLAMP_BOX^3 box, float32 against its
+        float64 twin: converged, energy to 1e-5, u to 1e-3, CG's indefinite
+        exits no more than the twin's and, with `counts`, the same SNES
+        count and KSP within 10%; the float32 solve's launches, counted
+        from 0, must cover `keys`."""
         runs = {}
         for dtype in (torch.float32, torch.float64):
             cfg = Config(**kw, box_faces=(CLAMP_BOX,) * 3, device=dev,
                          dtype=dtype, ksp_rtol=1e-6)
             cfg.newton.rtol = 1e-6      # the CLI's float32 policy, both
-            p12 = ElasticityProblem(cfg)
+            p = ElasticityProblem(cfg)
             fa.COUNTS.reset()
-            i12 = p12.solve()
-            runs[dtype] = (p12, i12, dict(fa.COUNTS.by_physics),
-                           p12.strain_energy(i12.u), dict(fa.COUNTS.by_path))
+            i = p.solve()
+            runs[dtype] = (p, i, dict(fa.COUNTS.by_physics),
+                           p.strain_energy(i.u), dict(fa.COUNTS.by_path))
         (p32, i32, c32, w32, paths32), (p64, i64, _, w64, _) = runs.values()
-        log(f"[12] {name} clamp, degree 2 on {CLAMP_BOX}^3 "
-            f"({i32.dofs} DoF), p-MG + AMG, float32 / float64: converged "
-            f"{i32.converged} / {i64.converged}, SNES {i32.snes_iters} / "
-            f"{i64.snes_iters}, KSP {i32.ksp_iters} / {i64.ksp_iters}, "
-            f"energy {w32:.10e} / {w64:.10e}, solve {i32.solve_time:.3f} / "
-            f"{i64.solve_time:.3f} s ({card})")
+        du = float(torch.linalg.norm(i32.u.double() - i64.u)
+                   / torch.linalg.norm(i64.u))
+        log(f"{tag} {name} clamp, degree {kw['degree']}"
+            f"{', qextra ' + str(kw['qextra']) if kw.get('qextra') else ''} "
+            f"on {CLAMP_BOX}^3 ({i32.dofs} DoF), p-MG {p32.level_degrees} + "
+            f"AMG, float32 / float64: converged {i32.converged} / "
+            f"{i64.converged}, SNES {i32.snes_iters} / {i64.snes_iters}, KSP "
+            f"{i32.ksp_iters} / {i64.ksp_iters}, energy {w32:.10e} / "
+            f"{w64:.10e}, |u32-u64|/|u64| {du:.3e}, solve "
+            f"{i32.solve_time:.3f} / {i64.solve_time:.3f} s ({card})")
         log(f"    float64 twin CG exits {p64.cg_exits}")
         amg_report(p32, i32, twin=p64)
         log("    kernel launches: " + ", ".join(
             f"{ph} {m} ({P},{Q}) {k}" for (ph, m, P, Q), k in
-            sorted(c32.items())) + f"; per copy path {paths32}")
+            sorted(c32.items())) + f"; per path {paths32}")
+        same_counts = (i32.snes_iters == i64.snes_iters and abs(
+            i32.ksp_iters - i64.ksp_iters) <= 0.1 * i64.ksp_iters)
         if not (i32.converged and i64.converged
-                and i32.snes_iters == i64.snes_iters
-                and abs(i32.ksp_iters - i64.ksp_iters) <= 0.1 * i64.ksp_iters
+                and (same_counts or not counts) and du <= 1e-3
                 and abs(w32 - w64) <= 1e-5 * abs(w64)):
-            raise AssertionError(f"[12] {name} float32 clamp solve disagrees "
-                                 "with its float64 twin")
+            raise AssertionError(f"{tag} {name} float32 clamp solve "
+                                 "disagrees with its float64 twin")
+        need(f"{tag} {name}", c32, keys)
+        return c32
+
+    for name, kw in CLAMP.items():
         keys = [(name, "residual", 3, 3), (name, "jacobian", 3, 3),
                 (name, "jacobian", 2, 2)]
         if name == "hyperFSIncomp":
             keys += [(PRESSURE, "residual", 3, 1),
                      (PRESSURE, "jacobian", 3, 1),
                      (PRESSURE, "jacobian", 2, 1)]
-        need(f"[12] {name}", c32, keys)
-        main_counts.append(c32)
-        del p32, p64, i32, i64, runs
+        main_counts.append(clamp_pair("[12]", name, kw, keys))
     torch.cuda.empty_cache()
 
     # ---- 13. PCGAMG: degree 1, CG preconditioned by the AMG alone -----------
@@ -831,13 +1011,92 @@ def main():
     del prob, info
     torch.cuda.empty_cache()
 
-    def instances(physics, mode):
-        """'P,Q' -> launches of one physics and mode over the main paths."""
+    # ---- 14. hyperFSIncomp -qextra 1: the pressure term on the generic tile -
+    c14 = clamp_pair("[14]", "hyperFSIncomp", INCOMP_QEXTRA, [
+        ("hyperFSIncomp", "residual", 5, 6),
+        ("hyperFSIncomp", "jacobian", 5, 6),
+        (PRESSURE, "residual", 5, 2), (PRESSURE, "jacobian", 5, 2),
+        (PRESSURE, "jacobian", 3, 2), (PRESSURE, "jacobian", 2, 2)],
+        counts=False)
+    main_counts.append(c14)
+    torch.cuda.empty_cache()
+
+    # ---- 15. hyperFS degree 6: the fine level on the generic tile ----------
+    deg6 = dict(multigrid="logarithmic", level_quadrature="native",
+                coarse_solve="amg", degree=6, by_physics=True)
+    prob, info, c15, err15, en15 = solve(torch.float32, DEGREE6_BOX, **deg6)
+    report(f"[15] hyperFS p6 {DEGREE6_BOX}^3 float32, p-MG CG + AMG:", prob,
+           info, c15, err15, en15)
+    amg_report(prob, info)
+    need("[15]", c15, [("hyperFS", "residual", 7, 7),
+                       ("hyperFS", "jacobian", 7, 7),
+                       ("hyperFS", "jacobian", 5, 5)])
+    check_twin("[15]", DEGREE6_BOX, info, err15, en15, f32_tolerances=True,
+               du_slack=True, **deg6)
+    main_counts.append(c15)
+    del prob, info
+    torch.cuda.empty_cache()
+
+    # ---- 16. an Exodus-II file through cli.main -mesh, at phase 11's size ---
+    k = EXODUS_BOX
+    scr = scrambled_box_mesh((k, k, k), k)
+    exo = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    exo.mkdir(parents=True, exist_ok=True)
+    exo = exo / f"scrambled{k}_hex27.exo"
+    write_exodus_hex27(exo, scr, {998: faces_on(scr, 0, 0.0),
+                                  999: faces_on(scr, 0, 1.0)})
+    fa.COUNTS.reset()
+    rc_e, out_e, prob_e, info_e = run_cli(
+        EXODUS_FLAGS + ["-mesh", str(exo), "-bc_clamp", "998,999",
+                        "-bc_clamp_999_translate", EXODUS_SHIFT])
+    c16 = dict(fa.COUNTS.by_physics)
+    paths16 = dict(fa.COUNTS.by_path)
+    rc_b, out_b, prob_b, info_b = run_cli(
+        EXODUS_FLAGS + ["-dm_plex_box_faces", f"{k},{k},{k}", "-bc_clamp",
+                        "6,5", "-bc_clamp_5_translate", EXODUS_SHIFT])
+    w_e, w_b = prob_e.strain_energy(info_e.u), prob_b.strain_energy(info_b.u)
+    xe, ue = by_coordinates(prob_e, info_e.u)
+    xb, ub = by_coordinates(prob_b, info_b.u)
+    du = float(np.linalg.norm(ue - ub) / np.linalg.norm(ub))
+    log(f"[16] cli.main -mesh {exo.name} ({prob_e.mesh.num_elements} "
+        f"elements, {info_e.dofs} DoF, HEX27 read as corners, reordered) vs "
+        f"the lattice {k}^3 box: rc {rc_e} / {rc_b}, {prob_e.dtype}, levels "
+        f"{prob_e.level_degrees} / {prob_b.level_degrees}")
+    log(f"    SNES {info_e.snes_iters} / {info_b.snes_iters}, KSP "
+        f"{info_e.ksp_iters} / {info_b.ksp_iters}, energy {w_e:.10e} / "
+        f"{w_b:.10e}, |u_exo - u_box| / |u_box| at nodes matched by "
+        f"coordinates {du:.3e}, setup {prob_e.setup_time:.2f} / "
+        f"{prob_b.setup_time:.2f} s (mesh read and reordered, FE spaces, "
+        f"operators), solve {info_e.solve_time:.3f} / "
+        f"{info_b.solve_time:.3f} s ({card})")
+    amg_report(prob_e, info_e)
+    log("    kernel launches (-mesh run): " + ", ".join(
+        f"{ph} {m} ({P},{Q}) {n_}" for (ph, m, P, Q), n_ in
+        sorted(c16.items())) + f"; per path {paths16}")
+    if not (rc_e == rc_b == 0 and info_e.converged and info_b.converged
+            and prob_e.mesh.num_elements == k ** 3
+            and info_e.dofs == info_b.dofs
+            and np.abs(xe - xb).max() <= 1e-12
+            and info_e.snes_iters == info_b.snes_iters
+            and abs(w_e - w_b) <= 1e-3 * abs(w_b) and du <= 1e-3):
+        raise AssertionError("[16] the Exodus solve disagrees with the box's")
+    need("[16]", c16, [("hyperFS", "residual", 5, 5),
+                       ("hyperFS", "jacobian", 5, 5),
+                       ("hyperFS", "jacobian", 3, 3),
+                       ("hyperFS", "jacobian", 2, 2)])
+    main_counts.append(c16)
+    del prob_e, prob_b, info_e, info_b
+    torch.cuda.empty_cache()
+
+    def instances(physics, mode, generic=False):
+        """'P,Q' -> launches of one physics and mode over the main paths,
+        of the template instances or of the generic tile."""
         out = {}
         for c in main_counts:
             for key, k in c.items():
                 ph, m, P, Q = key if len(key) == 4 else ("hyperFS", *key)
-                if (ph, m) == (physics, mode):
+                if ((ph, m) == (physics, mode)
+                        and fa.is_generic(ph, P, Q) == generic):
                     out[f"{P},{Q}"] = out.get(f"{P},{Q}", 0) + k
         return out
 
@@ -870,6 +1129,17 @@ def main():
          **bound(ptimes[ph][2][mode], ptimes[ph][1][mode]),
          "library_ms": None, "physics": ph, "instances": instances(ph, mode)}
         for ph in (*NEW_PHYSICS, PRESSURE)
+        for i, mode in enumerate(("residual", "jacobian"))
+    ] + [
+        {"name": f"fused_apply_generic_{mode}[{ph} ({P},{Q}) {box}^3]",
+         "route": "cuda", "source": CU_SOURCE, "replaces": TPU_KERNEL,
+         "launches": sum(instances(ph, mode, generic=True).values()),
+         "max_abs_err": max(generr[ph][i::2]), "ms": t[mode],
+         "plain_ms": t[mode + "_plain"], "device_ms": d[mode],
+         "plain_device_ms": d[mode + "_plain"], **bound(bd[mode], d[mode]),
+         "library_ms": None, "physics": ph,
+         "instances": instances(ph, mode, generic=True)}
+        for ph, (t, d, bd, (P, Q, box)) in gtimes3d.items()
         for i, mode in enumerate(("residual", "jacobian"))
     ] + [
         {"name": f"gather_{name}", "route": "cuda", "source": PROBE_SOURCE,

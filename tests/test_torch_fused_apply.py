@@ -22,6 +22,7 @@ from ceedpetscsolid_tpu.models import Physics as JPhysics
 from ceedpetscsolid_tpu.models import hyper_fs as jhfs
 from ceedpetscsolid_tpu.ops.operator import OperatorFactory as JFactory
 from ceedpetscsolid_tpu_torch import interop
+from ceedpetscsolid_tpu_torch.mesh.box import box_mesh
 from ceedpetscsolid_tpu_torch.mesh.fespace import build_fespace as tbuild
 from ceedpetscsolid_tpu_torch.ops import fused_apply
 from ceedpetscsolid_tpu_torch.ops.operator import OperatorFactory as TFactory
@@ -185,26 +186,75 @@ def test_kernel_input_checks():
     tf4 = TFactory(tbuild(tm, 2), qextra=1, dtype=torch.float64)
     fused_apply._check(u, tf4.restr.conn, tf4.compute_qdata(), tf4.basis,
                        torch.zeros((9, tf4.nelem, tf4.Q3), dtype=torch.float64))
-    # (P, Q) = (3, 7), degree 2 at -qextra 4, has no instance
+    # (P, Q) = (3, 7), degree 2 at -qextra 4, has no template instance: the
+    # generic tile takes it
     tf5 = TFactory(tbuild(tm, 2), qextra=4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="no instance for P=3, Q=7"):
-        fused_apply._check(u, tf5.restr.conn, tf5.compute_qdata(), tf5.basis,
-                           torch.zeros((9, tf5.nelem, tf5.Q3),
-                                       dtype=torch.float64))
-    # linElas takes no stash; the pressure term has (P, 1) only
+    assert fused_apply.is_generic("hyperFS", 3, 7)
+    fused_apply._check(u, tf5.restr.conn, tf5.compute_qdata(), tf5.basis,
+                       torch.zeros((9, tf5.nelem, tf5.Q3), dtype=torch.float64))
+    # linElas takes no stash; the pressure term has template instances at
+    # (P, 1) only, and the generic tile for (3, 3)
     fused_apply._check(u, conn, q, b, None, "linElas")
     with pytest.raises(ValueError, match="no stash"):
         fused_apply._check(u, conn, q, b, st, "linElas")
     with pytest.raises(ValueError, match="stash is missing"):
         fused_apply._check(u, conn, q, b, None, "hyperSS")
-    with pytest.raises(NotImplementedError, match="no instance for P=3, Q=3"):
-        fused_apply._check(u, conn, q, b, st, "hyperFSIncomp-pressure")
+    assert fused_apply.is_generic("hyperFSIncomp-pressure", 3, 3)
+    fused_apply._check(u, conn, q, b, st, "hyperFSIncomp-pressure")
+    # a generic tile above what a block's shared memory holds is refused,
+    # naming the bytes: (12, 12) in float64
+    tb = TFactory(tbuild(box_mesh((1, 1, 1)), 11), dtype=torch.float64)
+    with pytest.raises(NotImplementedError,
+                       match="needs 251,136 bytes of shared memory"):
+        fused_apply._check(torch.zeros((3, tb.space.num_nodes),
+                                       dtype=torch.float64),
+                           tb.restr.conn, tb.compute_qdata(), tb.basis,
+                           torch.zeros((9, 1, 12 ** 3), dtype=torch.float64))
     tp = TFactory(tbuild(tm, 2), dtype=torch.float64, q1d=1)
     fused_apply._check(u, tp.restr.conn, tp.compute_qdata(), tp.basis,
                        torch.zeros((9, tp.nelem, 1), dtype=torch.float64),
                        "hyperFSIncomp-pressure")
     with pytest.raises(ValueError, match="no physics"):
         fused_apply.pointwise("neoHooke")
+
+
+@pytest.mark.parametrize("P,Q,dtype,elems,smem", [
+    (2, 2, torch.float64, 32, 36_928),      # 32 elements: a thread a point
+    (5, 2, torch.float32, 24, 64_880),      # 24 elements within 64 KB
+    (7, 7, torch.float32, 1, 25_088),
+    (10, 10, torch.float32, 1, 72_800),
+    (10, 10, torch.float64, 1, 145_600),
+    (11, 11, torch.float64, 1, 193_600),
+    (14, 14, torch.float32, 1, 199_136),
+])
+def test_generic_plan_counted_by_hand(P, Q, dtype, elems, smem):
+    """The generic tile's plan (csrc/fused_apply.cu generic_plan): B and D
+    (2 Q P words), and per element max(3 P^3, 9 P Q^2) + max(6 P^2 Q,
+    9 Q^3) words; min(64, 256 // Q^3) elements, fewer while a tile of more
+    than one exceeds 64 KB. E.g. (5, 2) f32: 375 + 300 words an element,
+    24 of them and 20 words of B, D: 4 (20 + 24 * 675) = 64,880 bytes."""
+    assert fused_apply.generic_plan(P, Q, dtype) == (elems, smem)
+    fused_apply.require_fits("hyperFS", P, Q, dtype)
+
+
+@pytest.mark.parametrize("P,Q,dtype,smem", [
+    (12, 12, torch.float64, 251_136),
+    (15, 15, torch.float32, 244_800),
+    (21, 2, torch.float64, 265_272),     # P > Q: ue alone is 3 P^3 words
+])
+def test_generic_refused_above_a_block(P, Q, dtype, smem):
+    """A generic tile whose one element needs more shared memory than an
+    H100 block may have (232,448 bytes) is refused, naming what it needs;
+    P and Q outside the generic tile's range are refused too."""
+    with pytest.raises(NotImplementedError,
+                       match=f"needs {smem:,} bytes of shared memory"):
+        fused_apply.require_fits("hyperFSIncomp-pressure", P, Q, dtype)
+    with pytest.raises(NotImplementedError, match="2 <= P <= 64"):
+        fused_apply.require_fits("hyperFS", 65, Q, dtype)
+    # a template instance is never the generic tile's
+    assert not fused_apply.is_generic("hyperFS", 5, 6)
+    assert not fused_apply.is_generic("hyperFSIncomp-pressure", 6, 1)
+    assert fused_apply.is_generic("hyperFSIncomp-pressure", 7, 1)
 
 
 def test_min_bytes_counted_by_hand():

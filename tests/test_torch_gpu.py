@@ -217,17 +217,98 @@ def test_launch_counts_and_refusals(cuda):
     # linElas takes no stash and refuses one
     with pytest.raises(ValueError, match="no stash"):
         fa.jacobian(v, conn, q, st, b, PHYS, "linElas")
-    # (P, Q) = (3, 7) has no instance: degree 2 at -qextra 4
-    f2 = OperatorFactory(f.space, qextra=4, dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="no instance for P=3, Q=7"):
-        fa.residual(u, f2.restr.conn, f2.compute_qdata(), f2.basis, PHYS)
-    # the pressure term has (P, 1) instances only
-    with pytest.raises(NotImplementedError, match="no instance for P=3, Q=3"):
-        fa.residual(u, conn, q, b, PHYS, "hyperFSIncomp-pressure")
     assert (fa.COUNTS.residual_launches, fa.COUNTS.jacobian_launches) == (1, 2)
-    with pytest.raises(NotImplementedError, match="-qextra 4"):
-        Config(problem="hyperFS", degree=2, multigrid="none", qextra=4,
-               device=cuda)
+    # (P, Q) = (3, 7), degree 2 at -qextra 4, and the pressure term at
+    # (3, 3) have no template instance: the generic tile runs them, counted
+    # under its own path
+    f2 = OperatorFactory(f.space, qextra=4, dtype=torch.float64, device=cuda)
+    fa.residual(u, f2.restr.conn, f2.compute_qdata(), f2.basis, PHYS)
+    fa.residual(u, conn, q, b, PHYS, "hyperFSIncomp-pressure")
+    torch.cuda.synchronize()
+    assert fa.COUNTS.by_path[("residual", "generic")] == 2
+    assert fa.COUNTS.by_physics[("hyperFSIncomp-pressure", "residual", 3,
+                                 3)] == 1
+    Config(problem="hyperFS", degree=2, multigrid="none", qextra=4,
+           device=cuda)
+
+
+# phase 3d of chip_smoke.py: (faces, degree, qextra or None, q1d, physics)
+GENERIC_CASES = [
+    *(((4, 4, 4), P - 1, kind, Q, "hyperFSIncomp-pressure")
+      for P in (2, 3, 4, 5) for Q in (2, 3) for kind in ("box", "scrambled")),
+    *(((3, 3, 3), P - 1, "box", Q, physics)
+      for P, Q in ((7, 7), (8, 8), (6, 7), (2, 7))
+      for physics in ("hyperFS", "linElas")),
+    ((1, 1, 1), 9, "box", 10, "hyperSS"),
+    ((1, 1, 1), 9, "box", 10, "hyperFSIncomp"),
+]
+
+
+@pytest.mark.parametrize("faces,degree,kind,Q,physics", GENERIC_CASES)
+def test_generic_matches_plain(cuda, faces, degree, kind, Q, physics):
+    """The generic tile (every (physics, P, Q) without a template
+    instance) against the plain version at the tolerances of
+    test_kernel_matches_plain: the pressure term at Q = 2, 3 (P > Q and
+    P <= Q), hyperFS and linElas at Q = 7, 8, float64 and float32 at
+    (10, 10). Its plan is generic_plan's, and its launches are counted
+    under "generic"."""
+    mesh = box_mesh(faces) if kind == "box" else scrambled_box_mesh(faces, 4)
+    f = OperatorFactory(build_fespace(mesh, degree), dtype=torch.float64,
+                        device=cuda, q1d=Q)
+    assert fa.is_generic(physics, f.basis.P, Q)
+    rng = np.random.default_rng(degree)
+    u, v = (torch.as_tensor(rng.standard_normal((3, f.space.num_nodes))
+                            * 3e-3 / faces[0], device=cuda) for _ in range(2))
+    q = f.compute_qdata()
+    for dtype in (torch.float64, torch.float32):
+        p = fa.plan(False, q.to(dtype), f.basis, None, physics)
+        assert p.path == "generic" and p.threads == fa.GENERIC_THREADS
+        assert (p.elems, p.smem) == fa.generic_plan(f.basis.P, Q, dtype)
+    fa.COUNTS.reset()
+    _check_physics(f, q, u, v, physics, cuda)
+    torch.cuda.synchronize()
+    assert fa.COUNTS.by_path == {("residual", "generic"): 2,
+                                 ("jacobian", "generic"): 2}
+
+
+def test_generic_configurations_construct(cuda):
+    """On CUDA, Config takes hyperFSIncomp with -qextra 2 (the pressure term
+    at (P, 3)) and degree 7 ((8, 8)): the generic tile runs them."""
+    Config(problem="hyperFSIncomp", qextra=2, device=cuda)
+    Config(degree=7, device=cuda)
+    Config(problem="hyperFS", degree=10, device=cuda, dtype=torch.float64)
+
+
+def test_generic_refused_above_a_block(cuda):
+    """(P, Q) = (11, 11) fits a block in float64 (193,600 bytes) and runs;
+    (12, 12) in float64 and (15, 15) in float32 need more shared memory
+    than an H100 block may have, and Config and the wrapper refuse them,
+    naming the bytes. The kernel's own refusal agrees at (12, 12)."""
+    f = OperatorFactory(build_fespace(box_mesh((1, 1, 1)), 10),
+                        dtype=torch.float64, device=cuda)
+    rng = np.random.default_rng(11)
+    u = torch.as_tensor(rng.standard_normal((3, f.space.num_nodes)) * 1e-3,
+                        device=cuda)
+    q = f.compute_qdata()
+    ve, st = fa.residual(u, f.restr.conn, q, f.basis, PHYS)
+    ve0, st0 = fa.residual_plain(u, f.restr.conn, q, f.basis, PHYS)
+    assert float((ve - ve0).abs().max() / ve0.abs().max()) <= 1e-12
+    with pytest.raises(NotImplementedError,
+                       match="needs 251,136 bytes of shared memory"):
+        Config(problem="hyperFS", degree=11, device=cuda,
+               dtype=torch.float64)
+    with pytest.raises(NotImplementedError,
+                       match="needs 244,800 bytes of shared memory"):
+        Config(problem="hyperFS", degree=14, device=cuda)
+    f12 = OperatorFactory(build_fespace(box_mesh((1, 1, 1)), 11),
+                          dtype=torch.float64, device=cuda)
+    u12 = torch.zeros((3, f12.space.num_nodes), dtype=torch.float64,
+                      device=cuda)
+    ve = torch.empty((3, 1, 12 ** 3), dtype=torch.float64, device=cuda)
+    st = torch.empty((9, 1, 12 ** 3), dtype=torch.float64, device=cuda)
+    with pytest.raises(RuntimeError, match="more shared memory"):
+        fa._launch(False, u12, f12.restr.conn, f12.compute_qdata(),
+                   f12.basis, st, ve, PHYS, fa.pointwise("hyperFS"))
 
 
 def test_solve_on_gpu_matches_cpu(cuda):

@@ -128,8 +128,8 @@ def test_cli_smoke_matches_jax(capsys, monkeypatch):
     assert _l2(out_t) == pytest.approx(_l2(out_j), rel=1e-5)
 
 
+# (-mesh is ported: test_torch_exodus.py::test_cli_mesh_matches_jax runs it)
 @pytest.mark.parametrize("flags,option", [
-    (["-mesh", "m.exo", "-multigrid", "none"], "-mesh m.exo"),
     (["-view_soln", "-multigrid", "none"], "-view_soln"),
     (["-view_final_soln"], "-view_final_soln"),
 ])
