@@ -62,13 +62,16 @@ Phases, each of which raises on failure:
   9. the row-gather probes (K3-K6): the entry point
      `python -m ceedpetscsolid_tpu_torch.ops.gather_probe` as a user runs it
      (K3/K4 must launch as thread-block clusters of more than one block),
-     then each kernel bitwise against its plain version (NaN rows included)
-     on gather_probe.probe_cases: the script's shape, a ragged one, a narrow
-     table, one that spans a cluster, one cut into column slabs, and
-     out-of-range indices (the JAX ops' wrap, NaN-fill, clamp and zero-row
-     semantics); call and device times of each kernel and plain version at
-     the probe's shape, and gather_loop vs index_select at the production
-     shape;
+     then each kernel against its plain version on
+     gather_probe.probe_cases: the script's shape, a ragged one, a narrow
+     table, one that spans a cluster, one cut into column slabs,
+     out-of-range indices (the JAX ops' wrap, NaN-fill, clamp and one-hot
+     semantics) and a table with non-finite values and signed zeros;
+     K3-K5 bitwise, K6 with NaN positions equal and every other value
+     bitwise (gather_probe.probe_equal); call and device times of each
+     kernel and plain version at the probe's shape beside bare tab[idx] and
+     the one-hot matrix product (cuBLAS), and gather_loop's call and device
+     ms, bound and share vs index_select at the production shape;
  10. the reference's own smoke test, its flags exactly (linElas, p-MG
      [1, 2, 3], AMG coarse solve), through cli.main: rc 0, silent, MMS
      rel-L2 within 1% of the JAX package's f64 value (float32 CG stops at
@@ -109,7 +112,9 @@ set to 0 just before each main path (phases 6-13) and read just after,
 the fused apply's also per copy path. Then one JSON line of per-kernel
 results (each with its bound from this run's shapes, `bound_by`, and
 `library_ms`: bare `tab[idx]` for the probes, none for the fused apply,
-which no one PyTorch call computes), the card line, and as the last line
+which no one PyTorch call computes; K6 also carries `matmul_ms`, the
+one-hot product through cuBLAS, and K5 its production-shape numbers),
+the card line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2, without
 the package beside this script 3, and it prints no result; any other
 error propagates with its traceback.
@@ -396,13 +401,15 @@ def gather_phase(dev, card):
     plain version on gather_probe.probe_cases; then call and device times
     at the probe's shape and the production-shape gather. Returns the
     entry point's launches, each kernel's max abs difference over the cases,
-    its times, the bare tab[idx] call's times (the one PyTorch call of the
-    same function for in-range indices) and the bound from the probe's
-    shape in ms: the table rows the indices touch read once, the indices
-    read once, the output written once, at 3.35 TB/s."""
+    its times, the library calls' times (gather_probe.time_library: bare
+    tab[idx], the one PyTorch call of the same function for in-range
+    indices, and the one-hot matrix product, K6's function as one call),
+    each kernel's bound in ms at the probe's shape (gather_probe.bound_ms:
+    the table rows the indices touch, all of them for K6, read once, the
+    indices read once, the output written once, at 3.35 TB/s) and the
+    production-shape numbers (gather_probe.time_production)."""
     import torch
 
-    from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
     from ceedpetscsolid_tpu_torch.ops import gather_probe as gp
 
     gp.COUNTS.reset()
@@ -417,18 +424,19 @@ def gather_phase(dev, card):
         log("    | " + line)
     if rc != 0 or min(launches.values()) < 1:
         raise AssertionError("gather probe entry point failed")
-    log(f"    K3/K4 launch attribute cudaLaunchAttributeClusterDimension: "
-        f"{clusters}")
+    log(f"    cluster dimensions of the last launches (K3, K4, K6; 1 block: "
+        f"a plain launch): {clusters}")
     if any(clusters.get(k, (1,))[0] < 2 for k in gp.STAGED):
         raise AssertionError(f"K3/K4 did not launch as clusters: {clusters}")
     errs, bad = dict.fromkeys(gp.KINDS, 0.0), []
     for label, tab, idx in gp.probe_cases(dev):
         (W, C), R = tab.shape, idx.shape[0]
-        p = gp.plan(W, C, R)
+        p, op = gp.plan(W, C, R), gp.onehot_plan(W, C, R, C % 4 == 0)
         cmp = gp.compare_probes(tab, idx)
-        log(f"    {label:32s} cluster {p.cs} x {C // p.slab} slab(s) x "
-            f"{p.groups} group(s): " + ", ".join(
-                f"{n} {'bitwise' if eq else 'DIFFERS'} {e:.1e}"
+        log(f"    {label:40s} K3/K4 cluster {p.cs} x {C // p.slab} slab(s) x "
+            f"{p.groups} group(s), K6 cluster {op.cs} x {op.slabs} x "
+            f"{op.groups}: " + ", ".join(
+                f"{n} {'equal' if eq else 'DIFFERS'} {e:.1e}"
                 for n, (eq, e) in cmp.items()))
         for n, (eq, e) in cmp.items():
             errs[n] = max(errs[n], e)
@@ -438,25 +446,29 @@ def gather_phase(dev, card):
         raise AssertionError(f"a probe kernel differs from its plain version: "
                              f"{bad}")
     tab, idx = gp.probe_inputs(dev)
-    times, bare = gp.time_probes(tab, idx), gp.time_index(tab, idx)
+    times, lib = gp.time_probes(tab, idx), gp.time_library(tab, idx)
     W, R, C = gp.PROBE_SHAPE
-    rows = int(torch.unique(idx).numel())
-    bound = 1e3 * (4 * (rows * C + R + R * C)) / fa.H100_BYTES_PER_S
+    bounds = {n: gp.bound_ms(tab, idx, whole_table=n == "onehot")
+              for n in gp.KINDS}
     log(f"    times at ({W}, {C}) / ({R},) ({card}): one call (host enqueue "
-        "included) / device alone")
-    log(f"    bare tab[idx]            {bare['ms']:.4f} / "
-        f"{bare['device_ms']:.4f} ms; bound {bound:.5f} ms ({rows} table "
-        "rows touched)")
+        "included) / device alone; bound from this run's inputs")
+    for k, t in lib.items():
+        log(f"    {'bare tab[idx]' if k == 'index' else 'onehot @ tab':24s} "
+            f"{t['ms']:.4f} / {t['device_ms']:.4f} ms")
     for name, t in times.items():
         log(f"    gather_{name:16s} {t['ms']:.4f} / {t['device_ms']:.4f} ms  "
-            f"(plain {t['plain_ms']:.4f} / {t['plain_device_ms']:.4f} ms)")
+            f"(plain {t['plain_ms']:.4f} / {t['plain_device_ms']:.4f} ms); "
+            f"bound {bounds[name]:.5f} ms, share "
+            f"{bounds[name] / t['device_ms']:.3f}")
     prod = gp.time_production(dev)
     Wp, Rp, Cp = gp.PRODUCTION_SHAPE
     log(f"    production ({Rp} rows of {Cp} from ({Wp}, {Cp}), "
-        f"{prod['gb']:.4f} GB): gather_loop {prod['ms']:.4f} ms "
-        f"({prod['gbps']:.1f} GB/s), index_select {prod['plain_ms']:.4f} ms "
-        f"({prod['plain_gbps']:.1f} GB/s) ({card})")
-    return launches, errs, times, bare, bound
+        f"{prod['gb']:.4f} GB): gather_loop call {prod['ms']:.4f} ms, device "
+        f"{prod['device_ms']:.4f} ms ({prod['gbps']:.1f} GB/s), bound "
+        f"{prod['bound_ms']:.4f} ms, share {prod['share']:.3f}; index_select "
+        f"call {prod['plain_ms']:.4f} ms, device {prod['plain_device_ms']:.4f}"
+        f" ms ({prod['plain_gbps']:.1f} GB/s) ({card})")
+    return launches, errs, times, lib, bounds, prod
 
 
 def main():
@@ -846,7 +858,7 @@ def main():
     del prob, info
 
     # ---- 9. row-gather probes ---------------------------------------------
-    launches9, gerr, gtimes, gbare, gbound = gather_phase(dev, card)
+    launches9, gerr, gtimes, glib, gbounds, gprod = gather_phase(dev, card)
     main_counts = [c6, c7, c8]          # by (mode, P, Q), hyperFS only
 
     def need(tag, counts, keys):
@@ -1145,8 +1157,13 @@ def main():
         {"name": f"gather_{name}", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_TPU[name], "launches": launches9[name],
          "max_abs_err": gerr[name], **gtimes[name],
-         **bound((gbound, "bytes"), gtimes[name]["device_ms"]),
-         "library_ms": gbare["ms"], "library_device_ms": gbare["device_ms"]}
+         **bound((gbounds[name], "bytes"), gtimes[name]["device_ms"]),
+         "library_ms": glib["index"]["ms"],
+         "library_device_ms": glib["index"]["device_ms"],
+         **({"matmul_ms": glib["matmul"]["ms"],
+             "matmul_device_ms": glib["matmul"]["device_ms"]}
+            if name == "onehot" else {}),
+         **({"production": gprod} if name == "loop" else {})}
         for name in PROBE_TPU
     ]
     if min(k["launches"] for k in kernels) < 1:

@@ -352,7 +352,8 @@ def test_gather_probe_index_semantics(cuda, shape):
     """Out-of-range indices (0, W-1, -1, -W, W, W+7, -W-1, the int32
     extremes and random ones in [-2W, 2W)): every kernel bitwise equal to
     its plain version on the card and on the CPU (the JAX-checked one):
-    NaN rows for K3/K4, clamped rows for K5, zero rows for K6."""
+    NaN rows for K3/K4, clamped rows for K5, zero rows for K6 (a finite
+    table)."""
     tab, idx = gp.probe_inputs(cuda, seed=2, shape=shape, out_of_range=True)
     for name, fn in gp.PROBES.items():
         got = fn(tab, idx)
@@ -364,6 +365,67 @@ def test_gather_probe_index_semantics(cuda, shape):
         assert torch.equal(bits.cpu(), ref.view(torch.int32)), name
 
 
+def _held(name, tab, idx):
+    """One probe against its plain version on the card and on the CPU
+    (the JAX-checked one), by gather_probe.probe_equal: K3-K5 bitwise, K6
+    NaN positions equal and every other value bitwise."""
+    got = gp.PROBES[name](tab, idx)
+    torch.cuda.synchronize()
+    assert gp.probe_equal(name, got, gp.PLAIN[name](tab, idx)), name
+    assert gp.probe_equal(name, got.cpu(),
+                          gp.PLAIN[name](tab.cpu(), idx.cpu())), name
+
+
+@pytest.mark.parametrize("shape", [gp.PROBE_SHAPE, (100, 300, 36),
+                                   (2000, 4096, 64), (4000, 512, 256)])
+def test_gather_probe_nonfinite(cuda, shape):
+    """A table with inf, -inf, NaNs (canonical, payload, negative,
+    signalling) and -0.0, their rows among in-range and out-of-range
+    indices: K3-K5 keep every bit; K6 gives NaN where the one-hot product
+    does (a non-finite value at another row of the column), +0.0 for
+    -0.0."""
+    tab, idx = gp.probe_inputs(cuda, seed=6, shape=shape, out_of_range=True,
+                               nonfinite=True)
+    for name in gp.PROBES:
+        _held(name, tab, idx)
+
+
+@pytest.mark.parametrize("R", [1, 255, 257, 4097])
+def test_gather_loop_onehot_ragged_rows(cuda, R):
+    """K5's flat grid and K6's groups at ragged row counts: the last block
+    partly empty, one row, more rows than pieces a block."""
+    W, C = 512, 128
+    idx = torch.as_tensor(np.random.default_rng(R).integers(
+        -2 * W, 2 * W, R, dtype=np.int32), device=cuda)
+    tab = gp.probe_inputs(cuda, seed=R, shape=(W, 1, C))[0]
+    for name in ("loop", "onehot"):
+        _held(name, tab, idx)
+
+
+def test_gather_loop_onehot_scalar_path(cuda):
+    """4-byte pieces: a table 3 floats wide and a table one float off 16
+    bytes; the staged probes refuse the misaligned one."""
+    tab3, idx = gp.probe_inputs(cuda, seed=8, shape=(50, 257, 3),
+                                out_of_range=True, nonfinite=True)
+    tab, idx128 = gp.probe_inputs(cuda, seed=9, shape=(512, 256, 128),
+                                  out_of_range=True, nonfinite=True)
+    base = torch.empty(tab.numel() + 1, device=cuda)
+    base[1:] = tab.reshape(-1)
+    shifted = base[1:].view(tab.shape)
+    assert shifted.data_ptr() % 16 == 4
+    for name in ("loop", "onehot"):
+        _held(name, tab3, idx)
+        _held(name, shifted, idx128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gp.gather_take(shifted, idx128)
+    # a table without columns: an empty output, nothing launched
+    gp.COUNTS.reset()
+    empty = torch.zeros((5, 0), device=cuda)
+    for name in ("loop", "onehot"):
+        assert gp.PROBES[name](empty, idx).shape == (idx.shape[0], 0)
+    assert set(gp.COUNTS.launches.values()) == {0}
+
+
 def test_gather_probe_counts_and_refusals(cuda):
     tab, idx = gp.probe_inputs(cuda)
     gp.COUNTS.reset()
@@ -373,8 +435,12 @@ def test_gather_probe_counts_and_refusals(cuda):
                                   "loop": 1, "onehot": 1}
     gp.gather_take(tab, idx)
     gp.gather_take_along_axis(tab, idx)
+    # K6 at the probe's shape: one block a cluster (onehot_plan)
     assert gp.COUNTS.cluster_dims == {"take": (8, 1, 1),
-                                      "take_along_axis": (8, 1, 1)}
+                                      "take_along_axis": (8, 1, 1),
+                                      "onehot": (1, 1, 1)}
+    gp.gather_onehot(*gp.probe_inputs(cuda, shape=(4000, 512, 256)))
+    assert gp.COUNTS.cluster_dims["onehot"] == (8, 1, 1)
     with pytest.raises(TypeError, match="int32"):
         gp.gather_take(tab, idx.long())
     with pytest.raises(ValueError, match="contiguous"):
@@ -387,7 +453,7 @@ def test_gather_probe_counts_and_refusals(cuda):
         gp.gather_take_along_axis(torch.zeros((512, 30), device=cuda), idx)
     assert torch.equal(gp.gather_loop(big, idx), big[idx])
     assert gp.COUNTS.launches == {"take": 1, "take_along_axis": 1,
-                                  "loop": 2, "onehot": 1}
+                                  "loop": 2, "onehot": 2}
     # odd width: the loop kernel's scalar path
     tab3 = torch.randn((50, 3), device=cuda)
     assert torch.equal(gp.gather_loop(tab3, idx % 50), tab3[idx % 50])
