@@ -4,7 +4,7 @@ The kernels have a plain C interface and are loaded with ctypes
 (ops/fused_apply.py, ops/gather_probe.py), so nvcc compiles them without
 PyTorch's headers. The fused apply's template instances are split into
 one translation unit per (physics, P), its generic tile into one per
-physics; every unit compiles in its own nvcc
+(physics, body); every unit compiles in its own nvcc
 process, all started together, and one nvcc call links the objects. The
 library goes to `build/kernels/` at the checkout root, named by a hash of
 its sources and flags: a changed source builds anew, an unchanged one is
@@ -22,22 +22,23 @@ import shutil
 import subprocess
 from pathlib import Path
 
-from ..ops.fused_apply import MAX_Q, PHYSICS
+from ..ops.fused_apply import GENERIC_BODIES, MAX_Q, PHYSICS
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 # (source, extra flags): one compile unit each; the fused apply's template
 # instance limit comes from ops/fused_apply.MAX_Q, one unit per (physics, P)
-# with P = 2..MAX_Q, one unit per physics for the generic tile, plus the
-# unit that holds the C entry point
+# with P = 2..MAX_Q, one unit per (physics, body) for the generic tile, plus
+# the unit that holds the C entry point
 _FUSED = (f"-DCPS_FUSED_MAX_Q={MAX_Q}",)
 UNITS = (("fused_apply.cu", _FUSED),
          *(("fused_apply.cu", (*_FUSED, f"-DCPS_FUSED_PHYS={pw.kernel_id}",
                                f"-DCPS_FUSED_P={p}"))
            for pw in PHYSICS.values() for p in range(2, MAX_Q + 1)),
          *(("fused_apply.cu", (*_FUSED,
-                               f"-DCPS_FUSED_GENERIC={pw.kernel_id}"))
-           for pw in PHYSICS.values()),
+                               f"-DCPS_FUSED_GENERIC={pw.kernel_id}",
+                               f"-DCPS_GENERIC_BODY={body}"))
+           for pw in PHYSICS.values() for body in GENERIC_BODIES),
          ("gather_probe.cu", ()))
 FUSED_UNITS = tuple(u for u in UNITS if u[0] == "fused_apply.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

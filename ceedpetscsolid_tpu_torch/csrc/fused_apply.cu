@@ -18,8 +18,9 @@
 // coarse level at the fine level's rule or a -qextra run; P > Q = 1 is the
 // pressure term at one point per element on every level. Every other
 // (physics, P, Q) runs on the generic tile, whose P and Q are run-time
-// arguments (generic_tile_kernel): the pressure term at Q = 1 + qextra > 1
-// and everything above Q = 6, as far as its shared memory fits a block.
+// arguments (generic_reg_kernel up to P, Q = 8, generic_tile_kernel above):
+// the pressure term at Q = 1 + qextra > 1 and everything above Q = 6, as
+// far as its shared memory fits a block.
 // Per element: gather the 3 x P^3 nodal values through `conn` (orientation is
 // already resolved by the FE-space numbering, so the TPU kernel's class rows,
 // orientation masks and selection GEMMs have no counterpart), contract to the
@@ -1449,13 +1450,14 @@ warp_tile_kernel(const T* __restrict__ u, long long N,
 }
 
 // ---------------------------------------------------------------------------
-// The generic tile (generic_tile_kernel): P and Q are run-time arguments. It
-// runs every (physics, P, Q) that the template instances above lack: the
-// pressure term at Q = 1 + qextra > 1 (P > Q on every p-multigrid level,
-// which all share that rule) and every instance above Q = 6 (degree >= 6,
-// or degree 5 with -qextra), in both modes and both types. One instance a
-// (physics, mode, type): 20 kernels in all, against the 264 of the template
-// library, so the build stays as it was.
+// The generic tile: P and Q are run-time arguments. It runs every
+// (physics, P, Q) that the template instances above lack: the pressure term
+// at Q = 1 + qextra > 1 (P > Q on every p-multigrid level, which all share
+// that rule) and every instance above Q = 6 (degree >= 6, or degree 5 with
+// -qextra), in both modes and both types. Up to P, Q = kGenericRegCap the
+// register bodies below run it (generic_reg_kernel); above, this
+// shared-memory body (generic_tile_kernel, "smem"): one instance a
+// (physics, mode, type), 20 kernels.
 // A block of kGenericThreads threads takes a tile of E elements (generic_
 // plan: about a thread a quadrature point, within kGenericBudget of shared
 // memory; one element once Q^3 >= 256). Every phase gives a thread one
@@ -1471,9 +1473,9 @@ warp_tile_kernel(const T* __restrict__ u, long long N,
 // H100) is refused: the first is (12, 12) in f64, (15, 15) in f32.
 // What bounds it on the card: as the template instances, memory on paper;
 // in practice its shared-memory traffic (no register rows: every operand of
-// every contraction is a shared load) and its block barriers. A simple
-// kernel that is right: no register rows, no staged streams, no
-// asynchronous copies (PERF.md §6 has its times against the bound).
+// every contraction is a shared load) and its block barriers: no register
+// rows, no staged streams, no asynchronous copies (PERF.md §6 has its
+// times at the solves' shapes, where the register bodies now run).
 // Per element (words, x fastest):
 //   buffer A: ue [c][pz][py][px] -> t2[3] [c][qy][qx][pz]
 //             -> adjoint t2[3] [c][pz][qx][qy]
@@ -1703,6 +1705,609 @@ generic_tile_kernel(int P, int Q, int E, int A, int B1,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The generic tile's register bodies (generic_reg_kernel): every generic
+// (physics, P, Q) with P, Q <= kGenericRegCap, which holds every pair the
+// solves launch (the pressure term at (P, 2..3) on each p-multigrid level,
+// hyperFS (7, 7) at degree 6). P and Q stay run-time arguments; the rows a
+// thread holds are register arrays of a compile-time cap (PC >= P,
+// QC >= Q), their loops unrolled to the cap and cut at P or Q, so a cap
+// near the shape wastes few issue slots. Bodies (generic_body, chosen by
+// shape; generic_launch sizes the tile):
+//   warp3x2 (PC 3, QC 2), warp6x2 (6, 2), warp8x3 (8, 3): Q <= 3, a tile's
+//       points fit a warp: a block is one warp that owns a tile of E <= 32
+//       / Q^3 elements; phases meet at __syncwarp.
+//   block8x8 (8, 8): 4 <= Q <= 8: a block owns a tile of E <= 256 / Q^3
+//       elements, its points (or lines) spread evenly over the fewest
+//       passes of at most kGenericThreads threads (343 points: 2 x 172, 192
+//       threads); one __syncthreads a phase.
+// The grid: one block a tile, and as many tiles as it takes to give the
+// card's SMs about kGenericWarpsPerSm warp tiles (block tiles: one) each
+// before a tile takes more elements: at phase 14's 512 elements (5, 2)
+// runs E = 1, 512 one-warp blocks (the shared-memory body: 22 blocks of
+// 24); at 24^3 E = 4, 3,456 blocks.
+// A phase gives a thread whole lines: the P (or Q) inputs of a line read
+// once from shared memory into registers, every output of the line, for B
+// and for D, made from them. In a warp tile forward x, forward y and
+// adjoint x take all three components of a line position (NC = 3: one
+// B/D row and one index computation serve three lines); a block tile
+// takes one component a line (NC = 1: with one element a tile, three
+// positions' worth of threads). Line positions advance by a stride
+// decomposed once (LineWalk), so no phase divides by P or Q. B and D: in
+// f32, at PC QC <= 32 (the warp bodies), loaded into registers at each
+// phase's start; else read as 16-byte rows of padded shared copies (the
+// same row for every thread: a broadcast). qdata's 10 planes, and in J.v
+// the stash's 9, are issued at the tile's start by TMA bulk copies
+// (bulk_path) or cp.async, and land during the gather and the forward
+// contractions; the gather issues a batch of kGatherBatch node ids, then
+// their values. Rows are padded to an odd length (PP = P | 1, QQ = Q | 1),
+// so that the lines of a warp, which read rows one row apart, fall in
+// distinct banks. ve is staged in shared memory and written out coalesced.
+// What holds it (PERF.md §6): at the solves' small meshes the chain
+// of one tile (two dependent global loads, seven phases, the physics) and
+// the launch; at 24^3 the instructions a tile issues and the warps an SM's
+// shared memory holds (13 tiles of 16 KB at (5, 2)).
+// Per element (words), buffer A and buffer B:
+//   A: ue [c][pz][py] rows of PP -> t2 [bd|db|bb][c][qy][qx] rows of PP
+//      -> adjoint t2 [0|1|2][c][pz][qx] rows of QQ -> ve (staged)
+//   B: t1 [b|d][c][pz][qx] rows of PP -> du/dv planes [3c+k] of the tile's
+//      points -> adjoint t1 [0|1][c][pz][py] rows of QQ
+// ---------------------------------------------------------------------------
+constexpr int kGenericRegCap = 8;      // P, Q above it: the smem body
+constexpr int kGenericWarpQ = 3;       // Q <= 3: a warp a tile
+constexpr int kGenericWarpsPerSm = 4;  // tiles an SM before E grows
+constexpr int kGatherBatch = 4;        // node ids in flight a thread
+
+enum GenericBody {
+  kBodySmem = 0,     // generic_tile_kernel, above the register cap
+  kBodyWarp3x2 = 1,  // warp team, PC = 3, QC = 2
+  kBodyWarp6x2 = 2,  // warp team, PC = 6, QC = 2
+  kBodyWarp8x3 = 3,  // warp team, PC = 8, QC = 3
+  kBodyBlock8 = 4,   // block team, PC = 8, QC = 8
+  kNumBodies = 5
+};
+
+__host__ __device__ constexpr int generic_body(int P, int Q) {
+  return P > kGenericRegCap || Q > kGenericRegCap ? kBodySmem
+         : Q > kGenericWarpQ ? kBodyBlock8
+         : Q > 2 || P > 6    ? kBodyWarp8x3
+         : P > 3             ? kBodyWarp6x2
+                             : kBodyWarp3x2;
+}
+__host__ __device__ constexpr int body_pc(int body) {
+  return body == kBodyWarp3x2 ? 3 : body == kBodyWarp6x2 ? 6 : 8;
+}
+__host__ __device__ constexpr int body_qc(int body) {
+  return body == kBodyBlock8 ? 8 : body == kBodyWarp8x3 ? 3 : 2;
+}
+
+struct GenericLaunch {
+  int body;          // GenericBody
+  int elems;         // E, elements a tile (one tile a block)
+  int threads;       // threads a block
+  int planes;        // per-point streams staged (register bodies)
+  int plane_stride;  // words between staged planes
+  int a_words;       // buffer A an element
+  int b_words;       // buffer B an element
+  int bd_words;      // B, D (Q rows of PCV), B^T, D^T (P rows of QCV)
+  size_t smem;       // dynamic shared memory, bytes
+  int tiles;         // blocks
+};
+
+// The launch of the generic tile at (P, Q) for `nelem` elements on a card
+// of `sms` SMs (ops/fused_apply.py generic_plan mirrors it).
+__host__ __device__ constexpr GenericLaunch generic_launch(int P, int Q,
+                                                           int tsize,
+                                                           int nelem, int sms,
+                                                           int planes) {
+  GenericLaunch g{};
+  g.body = generic_body(P, Q);
+  if (g.body == kBodySmem) {
+    const GenericPlan s = generic_plan(P, Q, tsize);
+    g.elems = s.elems;
+    g.threads = kGenericThreads;
+    g.a_words = s.a_words;
+    g.b_words = s.b_words;
+    g.smem = s.smem;
+  } else {
+    const int PC = body_pc(g.body), QC = body_qc(g.body);
+    const int V = 16 / tsize, Q3 = Q * Q * Q, PP = P | 1, QQ = Q | 1;
+    const bool warp = g.body != kBodyBlock8;
+    g.planes = planes;
+    g.a_words = cmax(cmax(3 * P * P * PP, 9 * Q * Q * PP), 9 * P * Q * QQ);
+    g.b_words = cmax(cmax(6 * P * Q * PP, 9 * Q3), 6 * P * P * QQ);
+    g.bd_words = 2 * Q * round_up(PC, V) + 2 * P * round_up(QC, V);
+    const int most = warp ? cmax(1, 32 / Q3) : cmax(1, kGenericThreads / Q3);
+    int E = cmin(most,
+                 cmax(1, nelem / ((warp ? kGenericWarpsPerSm : 1) * sms)));
+    for (;; --E) {
+      g.plane_stride = round_up(E * Q3, V) + V;
+      g.smem = kBarBytes + (size_t)tsize * (g.bd_words +
+                                            (size_t)planes * g.plane_stride +
+                                            (size_t)E * (g.a_words + g.b_words));
+      if (E == 1 || g.smem <= kGenericBudget) break;
+    }
+    g.elems = E;
+    const int m = cmax(P, Q);
+    // a block tile: its points (or lines) in as few passes of at most
+    // kGenericThreads threads as may be, spread evenly over the passes
+    const int n = cmax(E * Q3, 3 * E * m * m);
+    const int passes = (n + kGenericThreads - 1) / kGenericThreads;
+    g.threads = warp ? 32 : round_up((n + passes - 1) / passes, 32);
+  }
+  g.tiles = nelem > 0 ? (nelem + g.elems - 1) / g.elems : 0;
+  return g;
+}
+
+template <bool WARP>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (WARP) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// The lines start, start + stride, ... of a phase, line l = (row Ra + a)
+// Rb + b: decomposed once, then advanced by adding the stride's own
+// decomposition with carries.
+struct LineWalk {
+  int row, a, b;
+  int Ra, Rb, drow, da, db;
+  __device__ __forceinline__ LineWalk(int start, int stride, int Ra_, int Rb_)
+      : Ra(Ra_), Rb(Rb_) {
+    const int R = Ra * Rb;
+    row = start / R;
+    int r = start - row * R;
+    a = r / Rb;
+    b = r - a * Rb;
+    drow = stride / R;
+    r = stride - drow * R;
+    da = r / Rb;
+    db = r - da * Rb;
+  }
+  __device__ __forceinline__ void next() {
+    b += db;
+    int carry = 0;
+    if (b >= Rb) {
+      b -= Rb;
+      carry = 1;
+    }
+    a += da + carry;
+    carry = 0;
+    if (a >= Ra) {
+      a -= Ra;
+      carry = 1;
+    }
+    row += drow + carry;
+  }
+};
+
+// n <= N words of a shared-memory row into registers
+template <int N, typename T>
+__device__ __forceinline__ void ld_line(const T* src, int n, T (&dst)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) dst[i] = i < n ? src[i] : T(0);
+}
+
+// Rows of B, D (Q rows of PCV words, zero past P) and B^T, D^T (P rows of
+// QCV, zero past Q) for one phase: held in registers (REG: f32 at PC QC <=
+// 32, loaded once a phase) or read from the padded shared copies a row at a
+// time, 16 bytes a load.
+template <bool REG, int PC, int QC, typename T>
+struct BDRows {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int PCV = round_up(PC, V), QCV = round_up(QC, V);
+  static constexpr int RQ = REG ? QC : 1, RP = REG ? PC : 1;
+  T rB[RQ][RP], rD[RQ][RP];
+  const T *sB, *sD, *sBT, *sDT;
+  __device__ __forceinline__ BDRows(const T* sB_, const T* sD_,
+                                    const T* sBT_, const T* sDT_)
+      : sB(sB_), sD(sD_), sBT(sBT_), sDT(sDT_) {
+    if constexpr (REG) {
+#pragma unroll
+      for (int q = 0; q < QC; ++q) {
+        ld_row<V>(sB + q * PCV, rB[q]);
+        ld_row<V>(sD + q * PCV, rD[q]);
+      }
+    }
+  }
+  // row q of B and of D
+  __device__ __forceinline__ void row(int q, T (&b)[PC], T (&d)[PC]) const {
+    if constexpr (REG) {
+#pragma unroll
+      for (int p = 0; p < PC; ++p) {
+        b[p] = rB[q][p];
+        d[p] = rD[q][p];
+      }
+    } else {
+      ld_row<V>(sB + q * PCV, b);
+      ld_row<V>(sD + q * PCV, d);
+    }
+  }
+  // row p of B^T and of D^T
+  __device__ __forceinline__ void col(int p, T (&b)[QC], T (&d)[QC]) const {
+    if constexpr (REG) {
+#pragma unroll
+      for (int q = 0; q < QC; ++q) {
+        b[q] = rB[q][p];
+        d[q] = rD[q][p];
+      }
+    } else {
+      ld_row<V>(sBT + p * QCV, b);
+      ld_row<V>(sDT + p * QCV, d);
+    }
+  }
+};
+
+template <int PH, bool JAC, typename T, int BODY>
+__global__ void __launch_bounds__(BODY == kBodyBlock8 ? kGenericThreads : 32)
+generic_reg_kernel(int P, int Q, int E, int PS, int A, int B1, int bd_words,
+                   const T* __restrict__ u, long long N,
+                   const long long* __restrict__ conn, int nelem,
+                   const T* __restrict__ qdata, const T* __restrict__ Bg,
+                   const T* __restrict__ Dg, T* __restrict__ stash,
+                   T* __restrict__ ve, T a, T b, int bulk) {
+  constexpr bool WARP = BODY != kBodyBlock8;
+  constexpr int PC = body_pc(BODY), QC = body_qc(BODY);
+  constexpr int V = 16 / sizeof(T);
+  constexpr int PCV = round_up(PC, V), QCV = round_up(QC, V);
+  constexpr bool kStashIn = JAC && Pointwise<PH>::kStash;
+  constexpr int NPL = kStashIn ? 19 : 10;
+  constexpr bool REG = sizeof(T) == 4 && PC * QC <= 32;
+  // components a line of forward x, forward y and adjoint x: all three in a
+  // warp tile (a line's B/D rows and index work serve three), one in a
+  // block tile (three times the lines to spread over its threads)
+  constexpr int NC = WARP ? 3 : 1, CR = 3 / NC;
+  using Rows = BDRows<REG, PC, QC, T>;
+  const int P2 = P * P, P3 = P2 * P, Q2 = Q * Q, Q3 = Q2 * Q;
+  const int PP = P | 1, QQ = Q | 1;
+  const int T1 = 3 * P * Q * PP;   // one t1 array (b or d)
+  const int T2 = 3 * Q2 * PP;      // one t2 array (bd, db or bb)
+  const int T2A = 3 * P * Q * QQ;  // one adjoint t2 array
+  const int T1A = 3 * P2 * QQ;     // one adjoint t1 array
+  const int EQ3 = E * Q3;          // a du/dv plane of the tile
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  T* sB = reinterpret_cast<T*>(smem + kBarBytes);  // Q rows of PCV
+  T* sD = sB + Q * PCV;
+  T* sBT = sD + Q * PCV;  // P rows of QCV
+  T* sDT = sBT + P * QCV;
+  T* slab = sB + bd_words;  // staged plane k at k * PS
+  T* bufA = slab + NPL * PS;  // element e at e * A
+  T* bufB = bufA + E * A;     // element e at e * B1; du/dv planes at k * EQ3
+
+  const int tid = threadIdx.x;
+  const int NT = blockDim.x;
+  const int e0 = blockIdx.x * E;
+  const int ne = min(E, nelem - e0);
+  const int npts = ne * Q3;
+  const size_t plane = (size_t)nelem * Q3;
+  const size_t s = (size_t)e0 * Q3;  // the tile's first point in a plane
+  // ...and in a staged plane (a bulk copy starts at a 16-byte boundary)
+  const int off = bulk ? static_cast<int>(s & (V - 1)) : 0;
+
+  // ---- the tile's per-point streams, in flight through the gather and the
+  // forward contractions ----
+  if (bulk) {
+    if (tid == 0) {
+      const uint32_t bytes = sizeof(T) * round_up(off + npts, V);
+      mbar_init(bar, 1);
+      mbar_arrive_expect_tx(bar, bytes * NPL);
+      for (int k = 0; k < NPL; ++k) {
+        const T* src = k < 10 ? qdata + k * plane : stash + (k - 10) * plane;
+        bulk_load(slab + k * PS, src + (s - off), bytes, bar);
+      }
+    }
+  } else {
+    for (int k = 0; k < 10; ++k)
+      for (int w = tid; w < npts; w += NT)
+        cp_async_word(slab + k * PS + w, qdata + k * plane + s + w);
+    if constexpr (kStashIn) {
+      for (int k = 0; k < 9; ++k)
+        for (int w = tid; w < npts; w += NT)
+          cp_async_word(slab + (10 + k) * PS + w, stash + k * plane + s + w);
+    }
+  }
+
+  // ---- B, D and B^T, D^T, zero-padded; the gather: a batch of node ids,
+  // then u's three components at them ----
+  for (int i = tid; i < Q * PCV; i += NT) {
+    const int q = i / PCV, p = i - q * PCV;
+    sB[i] = p < P ? Bg[q * P + p] : T(0);
+    sD[i] = p < P ? Dg[q * P + p] : T(0);
+  }
+  for (int i = tid; i < P * QCV; i += NT) {
+    const int p = i / QCV, q = i - p * QCV;
+    sBT[i] = q < Q ? Bg[q * P + p] : T(0);
+    sDT[i] = q < Q ? Dg[q * P + p] : T(0);
+  }
+  {
+    const long long* ce = conn + (size_t)e0 * P3;
+    const int n = ne * P3;
+    LineWalk w(tid, NT, P2, P);  // node i = (e P^2 + pz P + py) P + px
+    for (int i0 = tid; i0 < n; i0 += kGatherBatch * NT) {
+      long long node[kGatherBatch];
+#pragma unroll
+      for (int k = 0; k < kGatherBatch; ++k) {
+        const int i = i0 + k * NT;
+        node[k] = i < n ? ce[i] : 0;
+      }
+      T val[kGatherBatch][3];
+#pragma unroll
+      for (int k = 0; k < kGatherBatch; ++k)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          val[k][c] = i0 + k * NT < n ? u[c * N + node[k]] : T(0);
+#pragma unroll
+      for (int k = 0; k < kGatherBatch; ++k) {
+        if (i0 + k * NT < n) {
+          T* o = bufA + w.row * A + w.a * PP + w.b;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) o[c * P2 * PP] = val[k][c];
+        }
+        w.next();
+      }
+    }
+  }
+  team_sync<WARP>();
+
+  // ---- forward x: line (pz, py) over px, NC components -> t1 b = B_x u,
+  // d = D_x u at every qx ----
+  {
+    const Rows bd(sB, sD, sBT, sDT);
+    for (LineWalk w(tid, NT, P, P); w.row < CR * ne; w.next()) {
+      const int e = w.row / CR, c0 = (w.row - CR * e) * NC;
+      T x[NC][PC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        ld_line(bufA + e * A + (((c0 + c) * P + w.a) * P + w.b) * PP, P,
+                x[c]);
+      T* o = bufB + e * B1 + (c0 * P + w.a) * Q * PP + w.b;
+#pragma unroll
+      for (int qx = 0; qx < QC; ++qx) {
+        if (qx < Q) {
+          T bq[PC], dq[PC];
+          bd.row(qx, bq, dq);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            T bs = T(0), ds = T(0);
+#pragma unroll
+            for (int px = 0; px < PC; ++px) {
+              if (px < P) {
+                bs += bq[px] * x[c][px];
+                ds += dq[px] * x[c][px];
+              }
+            }
+            o[c * P * Q * PP + qx * PP] = bs;
+            o[T1 + c * P * Q * PP + qx * PP] = ds;
+          }
+        }
+      }
+    }
+  }
+  team_sync<WARP>();
+
+  // ---- forward y: line (pz, qx) over py, NC components -> t2 bd =
+  // B_y D_x u, db = D_y B_x u, bb = B_y B_x u at every qy ----
+  {
+    const Rows bd(sB, sD, sBT, sDT);
+    for (LineWalk w(tid, NT, P, Q); w.row < CR * ne; w.next()) {
+      const int e = w.row / CR, c0 = (w.row - CR * e) * NC;
+      T x0[NC][PC], x1[NC][PC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int j = ((c0 + c) * P + w.a) * Q + w.b;
+        ld_line(bufB + e * B1 + j * PP, P, x0[c]);
+        ld_line(bufB + e * B1 + T1 + j * PP, P, x1[c]);
+      }
+      T* o = bufA + e * A + (c0 * Q2 + w.b) * PP + w.a;
+#pragma unroll
+      for (int qy = 0; qy < QC; ++qy) {
+        if (qy < Q) {
+          T bq[PC], dq[PC];
+          bd.row(qy, bq, dq);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            T sbd = T(0), sdb = T(0), sbb = T(0);
+#pragma unroll
+            for (int py = 0; py < PC; ++py) {
+              if (py < P) {
+                sbd += bq[py] * x1[c][py];
+                sdb += dq[py] * x0[c][py];
+                sbb += bq[py] * x0[c][py];
+              }
+            }
+            T* oc = o + c * Q2 * PP + qy * Q * PP;
+            oc[0] = sbd;
+            oc[T2] = sdb;
+            oc[2 * T2] = sbb;
+          }
+        }
+      }
+    }
+  }
+  team_sync<WARP>();
+
+  // ---- forward z: line (c, qy, qx) over pz -> du[3c + k] at every qz ----
+  {
+    const Rows bd(sB, sD, sBT, sDT);
+    for (LineWalk w(tid, NT, Q, Q); w.row < 3 * ne; w.next()) {
+      const int e = w.row / 3, c = w.row - 3 * e;
+      const int qxy = w.a * Q + w.b;
+      const T* t2 = bufA + e * A + (c * Q2 + qxy) * PP;
+      T r0[PC], r1[PC], r2[PC];
+      ld_line(t2, P, r0);
+      ld_line(t2 + T2, P, r1);
+      ld_line(t2 + 2 * T2, P, r2);
+      T* o = bufB + 3 * c * EQ3 + e * Q3 + qxy;
+#pragma unroll
+      for (int qz = 0; qz < QC; ++qz) {
+        if (qz < Q) {
+          T bz[PC], dz[PC];
+          bd.row(qz, bz, dz);
+          T a0 = T(0), a1 = T(0), a2 = T(0);
+#pragma unroll
+          for (int pz = 0; pz < PC; ++pz) {
+            if (pz < P) {
+              a0 += bz[pz] * r0[pz];
+              a1 += bz[pz] * r1[pz];
+              a2 += dz[pz] * r2[pz];
+            }
+          }
+          o[qz * Q2] = a0;
+          o[EQ3 + qz * Q2] = a1;
+          o[2 * EQ3 + qz * Q2] = a2;
+        }
+      }
+    }
+  }
+  if (!bulk) cp_async_wait_all();
+  team_sync<WARP>();
+  if (bulk) mbar_wait(bar, 0);
+
+  // ---- pointwise physics, one point of the tile a thread at a time; dv
+  // overwrites du in place ----
+#pragma unroll 1
+  for (int pt = tid; pt < npts; pt += NT) {
+    T du[9], X[9], dv[9], g[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) du[k] = bufB[k * EQ3 + pt];
+    const T* sl = slab + off + pt;
+    const T wdetJ = sl[0];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) X[k] = sl[(1 + k) * PS];
+    if constexpr (JAC) {
+      if constexpr (kStashIn) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) g[k] = sl[(10 + k) * PS];
+      }
+      jacobian_point<PH>(du, X, wdetJ, g, a, b, dv);
+    } else {
+      residual_point<PH>(du, X, wdetJ, a, b, dv, g);
+      if constexpr (Pointwise<PH>::kStash) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) stash[k * plane + s + pt] = g[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) bufB[k * EQ3 + pt] = dv[k];
+  }
+  team_sync<WARP>();
+
+  // ---- adjoint z: line (c, qy, qx) over qz -> adjoint t2 0 = B_z^T dv0,
+  // 1 = B_z^T dv1, 2 = D_z^T dv2 at every pz ----
+  {
+    const Rows bd(sB, sD, sBT, sDT);
+    for (LineWalk w(tid, NT, Q, Q); w.row < 3 * ne; w.next()) {
+      const int e = w.row / 3, c = w.row - 3 * e;
+      const T* d = bufB + 3 * c * EQ3 + e * Q3 + w.a * Q + w.b;
+      T y0[QC], y1[QC], y2[QC];
+#pragma unroll
+      for (int qz = 0; qz < QC; ++qz) {
+        y0[qz] = qz < Q ? d[qz * Q2] : T(0);
+        y1[qz] = qz < Q ? d[EQ3 + qz * Q2] : T(0);
+        y2[qz] = qz < Q ? d[2 * EQ3 + qz * Q2] : T(0);
+      }
+      T* o = bufA + e * A + (c * P * Q + w.b) * QQ + w.a;
+#pragma unroll
+      for (int pz = 0; pz < PC; ++pz) {
+        if (pz < P) {
+          T bt[QC], dt[QC];
+          bd.col(pz, bt, dt);
+          T a0 = T(0), a1 = T(0), a2 = T(0);
+#pragma unroll
+          for (int qz = 0; qz < QC; ++qz) {
+            if (qz < Q) {
+              a0 += bt[qz] * y0[qz];
+              a1 += bt[qz] * y1[qz];
+              a2 += dt[qz] * y2[qz];
+            }
+          }
+          o[pz * Q * QQ] = a0;
+          o[T2A + pz * Q * QQ] = a1;
+          o[2 * T2A + pz * Q * QQ] = a2;
+        }
+      }
+    }
+  }
+  team_sync<WARP>();
+
+  // ---- adjoint y: line (c, pz, qx) over qy -> adjoint t1 0 = B_y^T a2 0,
+  // 1 = D_y^T a2 1 + B_y^T a2 2 at every py ----
+  {
+    const Rows bd(sB, sD, sBT, sDT);
+    for (LineWalk w(tid, NT, P, Q); w.row < 3 * ne; w.next()) {
+      const int e = w.row / 3, c = w.row - 3 * e;
+      const int j = (c * P + w.a) * Q + w.b;
+      T y0[QC], y1[QC], y2[QC];
+      ld_line(bufA + e * A + j * QQ, Q, y0);
+      ld_line(bufA + e * A + T2A + j * QQ, Q, y1);
+      ld_line(bufA + e * A + 2 * T2A + j * QQ, Q, y2);
+      T* o = bufB + e * B1 + (c * P + w.a) * P * QQ + w.b;
+#pragma unroll
+      for (int py = 0; py < PC; ++py) {
+        if (py < P) {
+          T bt[QC], dt[QC];
+          bd.col(py, bt, dt);
+          T s0 = T(0), s1 = T(0);
+#pragma unroll
+          for (int qy = 0; qy < QC; ++qy) {
+            if (qy < Q) {
+              s0 += bt[qy] * y0[qy];
+              s1 += dt[qy] * y1[qy] + bt[qy] * y2[qy];
+            }
+          }
+          o[py * QQ] = s0;
+          o[T1A + py * QQ] = s1;
+        }
+      }
+    }
+  }
+  team_sync<WARP>();
+
+  // ---- adjoint x: line (pz, py) over qx, NC components -> ve =
+  // D_x^T a1 0 + B_x^T a1 1 at every px, staged by component over the
+  // tile ----
+  {
+    const Rows bd(sB, sD, sBT, sDT);
+    const int NP3 = ne * P3;
+    for (LineWalk w(tid, NT, P, P); w.row < CR * ne; w.next()) {
+      const int e = w.row / CR, c0 = (w.row - CR * e) * NC;
+      T x0[NC][QC], x1[NC][QC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int r = ((c0 + c) * P + w.a) * P + w.b;
+        ld_line(bufB + e * B1 + r * QQ, Q, x0[c]);
+        ld_line(bufB + e * B1 + T1A + r * QQ, Q, x1[c]);
+      }
+      T* o = bufA + c0 * NP3 + e * P3 + (w.a * P + w.b) * P;
+#pragma unroll
+      for (int px = 0; px < PC; ++px) {
+        if (px < P) {
+          T bt[QC], dt[QC];
+          bd.col(px, bt, dt);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            T acc = T(0);
+#pragma unroll
+            for (int qx = 0; qx < QC; ++qx)
+              if (qx < Q) acc += dt[qx] * x0[c][qx] + bt[qx] * x1[c][qx];
+            o[c * NP3 + px] = acc;
+          }
+        }
+      }
+    }
+    team_sync<WARP>();
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      T* dst = ve + ((size_t)c * nelem + e0) * P3;
+      for (int w = tid; w < NP3; w += NT) dst[w] = bufA[c * NP3 + w];
+    }
+  }
+}
+
 // Raises a kernel's dynamic shared memory limit (above 48 KB it must be) and
 // asks for the largest shared-memory carveout.
 template <typename K>
@@ -1791,44 +2396,50 @@ cudaError_t launch_pq(int jacobian, int is_double, const void* u, long long N,
   return launch<PH, false, P, Q, float>(u, N, conn, nelem, qdata, B, D, stash, ve, a, b, s);
 }
 
-// Launches the generic tile of one (physics, mode, type) at (P, Q); returns
-// the CUDA error of its set-up, or kSmemRefused when its tile needs more
-// shared memory than a block may opt in to on this device.
+// Launches the generic tile of one (physics, mode, type) in body BODY as
+// `g` plans it; returns the CUDA error of its set-up. `optin`: the most
+// dynamic shared memory a block may opt in to on this device, which the
+// kernel is allowed once a device.
 constexpr int kSmemRefused = -2;
 
-template <int PH, bool JAC, typename T>
-int launch_generic(int P, int Q, const void* u, long long N, const void* conn,
-                   int nelem, const void* qdata, const void* B, const void* D,
-                   void* stash, void* ve, double a, double b,
-                   cudaStream_t stream) {
-  // set-up once for each device: the kernel may take all the shared memory
-  // a block may opt in to
+template <int PH, bool JAC, typename T, int BODY>
+int launch_generic_body(const GenericLaunch& g, int optin, int P, int Q,
+                        const void* u, long long N, const void* conn,
+                        int nelem, const void* qdata, const void* B,
+                        const void* D, void* stash, void* ve, double a,
+                        double b, int bulk, cudaStream_t stream) {
   static std::atomic<unsigned> ready{0};
-  static int optin[32];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
-  auto kernel = generic_tile_kernel<PH, JAC, T>;
-  if (!(ready.load() >> dev & 1u)) {
-    int limit = 0;
-    err = cudaDeviceGetAttribute(&limit,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) err = prepare(kernel, static_cast<size_t>(limit));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    optin[dev] = limit;
-    ready.fetch_or(1u << dev);
+  if constexpr (BODY == kBodySmem) {
+    auto kernel = generic_tile_kernel<PH, JAC, T>;
+    if (!(ready.load() >> dev & 1u)) {
+      err = prepare(kernel, static_cast<size_t>(optin));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ready.fetch_or(1u << dev);
+    }
+    kernel<<<g.tiles, g.threads, g.smem, stream>>>(
+        P, Q, g.elems, g.a_words, g.b_words, static_cast<const T*>(u), N,
+        static_cast<const long long*>(conn), nelem,
+        static_cast<const T*>(qdata), static_cast<const T*>(B),
+        static_cast<const T*>(D), static_cast<T*>(stash),
+        static_cast<T*>(ve), T(a), T(b));
+  } else {
+    auto kernel = generic_reg_kernel<PH, JAC, T, BODY>;
+    if (!(ready.load() >> dev & 1u)) {
+      err = prepare(kernel, static_cast<size_t>(optin));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ready.fetch_or(1u << dev);
+    }
+    kernel<<<g.tiles, g.threads, g.smem, stream>>>(
+        P, Q, g.elems, g.plane_stride, g.a_words, g.b_words, g.bd_words,
+        static_cast<const T*>(u), N, static_cast<const long long*>(conn),
+        nelem, static_cast<const T*>(qdata), static_cast<const T*>(B),
+        static_cast<const T*>(D), static_cast<T*>(stash),
+        static_cast<T*>(ve), T(a), T(b), bulk);
   }
-  const GenericPlan g = generic_plan(P, Q, sizeof(T));
-  if (g.smem > static_cast<size_t>(optin[dev])) return kSmemRefused;
-  const int tiles = (nelem + g.elems - 1) / g.elems;
-  if (tiles == 0) return 0;
-  kernel<<<tiles, kGenericThreads, g.smem, stream>>>(
-      P, Q, g.elems, g.a_words, g.b_words, static_cast<const T*>(u), N,
-      static_cast<const long long*>(conn), nelem,
-      static_cast<const T*>(qdata), static_cast<const T*>(B),
-      static_cast<const T*>(D), static_cast<T*>(stash), static_cast<T*>(ve),
-      T(a), T(b));
   return 0;
 }
 
@@ -1882,9 +2493,10 @@ constexpr bool generic_pq(int PH, int P, int Q) {
 // The instances are split into one translation unit per (physics, P)
 // (compiled with -DCPS_FUSED_PHYS=ph -DCPS_FUSED_P=p by csrc/build.py, in
 // parallel nvcc processes): unit (ph, p) defines dispatch_p<ph, p>; and one
-// per physics for the generic tile (-DCPS_FUSED_GENERIC=ph): unit ph defines
-// generic_any<ph>. The unit with neither sees only the declarations and
-// holds the C entry points below.
+// per (physics, body) for the generic tile (-DCPS_FUSED_GENERIC=ph
+// -DCPS_GENERIC_BODY=body): unit (ph, body) defines generic_run<ph, body>.
+// The unit with neither sees only the declarations and holds the C entry
+// points below.
 #define CPS_DISPATCH_PARAMS                                                 \
   int Q, int jacobian, int is_double, const void *u, long long N,          \
       const void *conn, int nelem, const void *qdata, const void *B,       \
@@ -1895,8 +2507,9 @@ constexpr bool generic_pq(int PH, int P, int Q) {
 
 template <int PH, int P>
 int dispatch_p(CPS_DISPATCH_PARAMS);
-template <int PH>
-int generic_any(int P, CPS_DISPATCH_PARAMS);
+template <int PH, int BODY>
+int generic_run(const GenericLaunch& g, int optin, int P, int bulk,
+                CPS_DISPATCH_PARAMS);
 
 #if defined(CPS_FUSED_P)
 template <int PH, int P>
@@ -1905,22 +2518,31 @@ int dispatch_p(CPS_DISPATCH_PARAMS) {
 }
 template int dispatch_p<CPS_FUSED_PHYS, CPS_FUSED_P>(CPS_DISPATCH_PARAMS);
 #elif defined(CPS_FUSED_GENERIC)
-template <int PH>
-int generic_any(int P, CPS_DISPATCH_PARAMS) {
+#ifndef CPS_GENERIC_BODY
+#error "a generic unit needs -DCPS_GENERIC_BODY=<body> (csrc/build.py)"
+#endif
+template <int PH, int BODY>
+int generic_run(const GenericLaunch& g, int optin, int P, int bulk,
+                CPS_DISPATCH_PARAMS) {
   if (is_double) {
     if (jacobian)
-      return launch_generic<PH, true, double>(P, Q, u, N, conn, nelem, qdata,
-                                              B, D, stash, ve, a, b, s);
-    return launch_generic<PH, false, double>(P, Q, u, N, conn, nelem, qdata,
-                                             B, D, stash, ve, a, b, s);
+      return launch_generic_body<PH, true, double, BODY>(
+          g, optin, P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, a, b,
+          bulk, s);
+    return launch_generic_body<PH, false, double, BODY>(
+        g, optin, P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, a, b,
+        bulk, s);
   }
   if (jacobian)
-    return launch_generic<PH, true, float>(P, Q, u, N, conn, nelem, qdata, B,
-                                           D, stash, ve, a, b, s);
-  return launch_generic<PH, false, float>(P, Q, u, N, conn, nelem, qdata, B,
-                                          D, stash, ve, a, b, s);
+    return launch_generic_body<PH, true, float, BODY>(
+        g, optin, P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, a, b,
+        bulk, s);
+  return launch_generic_body<PH, false, float, BODY>(
+      g, optin, P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, a, b, bulk,
+      s);
 }
-template int generic_any<CPS_FUSED_GENERIC>(int P, CPS_DISPATCH_PARAMS);
+template int generic_run<CPS_FUSED_GENERIC, CPS_GENERIC_BODY>(
+    const GenericLaunch& g, int optin, int P, int bulk, CPS_DISPATCH_PARAMS);
 #else
 // P = Pc..FUSED_MAX_Q for one physics; -1 when P has no instance.
 template <int PH, int Pc = 2>
@@ -1944,15 +2566,90 @@ int dispatch_any(int physics, int P, CPS_DISPATCH_PARAMS) {
   }
 }
 
-// The generic tile of physics = PHc..kNumPhysics-1.
+// The generic tile of physics = PHc..kNumPhysics-1, body = BODYc..
+// kNumBodies-1.
+template <int PH, int BODYc = 0>
+int dispatch_generic_body(int body, const GenericLaunch& g, int optin, int P,
+                          int bulk, CPS_DISPATCH_PARAMS) {
+  if constexpr (BODYc >= kNumBodies) {
+    return -1;
+  } else {
+    if (body == BODYc)
+      return generic_run<PH, BODYc>(g, optin, P, bulk, CPS_DISPATCH_ARGS);
+    return dispatch_generic_body<PH, BODYc + 1>(body, g, optin, P, bulk,
+                                                CPS_DISPATCH_ARGS);
+  }
+}
+
 template <int PHc = 0>
-int dispatch_generic(int physics, int P, CPS_DISPATCH_PARAMS) {
+int dispatch_generic(int physics, const GenericLaunch& g, int optin, int P,
+                     int bulk, CPS_DISPATCH_PARAMS) {
   if constexpr (PHc >= kNumPhysics) {
     return -1;
   } else {
-    if (physics == PHc) return generic_any<PHc>(P, CPS_DISPATCH_ARGS);
-    return dispatch_generic<PHc + 1>(physics, P, CPS_DISPATCH_ARGS);
+    if (physics == PHc)
+      return dispatch_generic_body<PHc>(g.body, g, optin, P, bulk,
+                                        CPS_DISPATCH_ARGS);
+    return dispatch_generic<PHc + 1>(physics, g, optin, P, bulk,
+                                     CPS_DISPATCH_ARGS);
   }
+}
+
+// The card's SM count and the most dynamic shared memory a block may opt
+// in to, read once a device.
+struct DeviceLimits {
+  int sms;
+  int optin;
+};
+
+inline int device_limits(DeviceLimits* out) {
+  static std::atomic<unsigned> ready{0};
+  static DeviceLimits limits[32];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!(ready.load() >> dev & 1u)) {
+    DeviceLimits l{};
+    err = cudaDeviceGetAttribute(&l.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &l.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limits[dev] = l;
+    ready.fetch_or(1u << dev);
+  }
+  *out = limits[dev];
+  return 0;
+}
+
+// The generic tile's launch for these arguments on the current device.
+inline int generic_for(int physics, int P, int Q, int jacobian, int is_double,
+                       int nelem, GenericLaunch* g, DeviceLimits* lim) {
+  const int r = device_limits(lim);
+  if (r != 0) return r;
+  const bool stash_in = jacobian && has_stash(physics);
+  *g = generic_launch(P, Q, is_double ? 8 : 4, nelem, lim->sms,
+                      stash_in ? 19 : 10);
+  return 0;
+}
+
+// Launches the generic tile; the CUDA error of its set-up, or
+// kSmemRefused when its tile needs more shared memory than a block may
+// opt in to on this device.
+inline int launch_generic(int physics, int P, CPS_DISPATCH_PARAMS) {
+  GenericLaunch g;
+  DeviceLimits lim;
+  const int r = generic_for(physics, P, Q, jacobian, is_double, nelem, &g,
+                            &lim);
+  if (r != 0) return r;
+  if (g.smem > static_cast<size_t>(lim.optin)) return kSmemRefused;
+  if (g.tiles == 0) return 0;
+  const bool stash_in = jacobian && has_stash(physics);
+  const int bulk = g.body != kBodySmem &&
+                   bulk_path(is_double ? 8 : 4, nelem, Q, qdata, stash,
+                             stash_in);
+  return dispatch_generic(physics, g, lim.optin, P, bulk, CPS_DISPATCH_ARGS);
 }
 #endif
 
@@ -1971,35 +2668,47 @@ int cps_fused_apply(int physics, int jacobian, int P, int Q, int is_double,
                     const void* qdata, const void* B, const void* D,
                     void* stash, void* ve, double a, double b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int r =
-      cps::generic_pq(physics, P, Q)
-          ? cps::dispatch_generic(physics, P, CPS_DISPATCH_ARGS)
-          : cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
+  const int r = cps::generic_pq(physics, P, Q)
+                    ? cps::launch_generic(physics, P, CPS_DISPATCH_ARGS)
+                    : cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
   if (r != 0) return r;
   return static_cast<int>(cudaGetLastError());
 }
 
 // The launch cps_fused_apply makes for the same arguments, without making
 // it: out = {elements a tile, threads a block, dynamic shared memory bytes,
-// tiles (blocks), path (1 TMA bulk, 0 cp.async, 2 the generic tile),
-// minimum blocks an SM of __launch_bounds__}. Returns 0, or -1 when
-// (physics, P, Q) runs on neither.
+// tiles (blocks), path (1 TMA bulk, 0 cp.async; the generic tile: 3 a
+// register body, 2 the shared-memory body), minimum blocks an SM of
+// __launch_bounds__, the generic register body's copy path (1 TMA bulk,
+// 0 cp.async; else -1), the generic tile's body (GenericBody; else -1)}.
+// Returns 0, -1 when (physics, P, Q) runs on neither, or the CUDA error of
+// reading the device's limits.
 int cps_fused_plan(int physics, int jacobian, int P, int Q, int is_double,
                    int nelem, const void* qdata, const void* stash,
                    long long* out) {
   const int tsize = is_double ? 8 : 4;
+  const bool stash_in = jacobian && cps::has_stash(physics);
+  out[6] = -1;
+  out[7] = -1;
   if (cps::generic_pq(physics, P, Q)) {
-    const cps::GenericPlan g = cps::generic_plan(P, Q, tsize);
+    cps::GenericLaunch g;
+    cps::DeviceLimits lim;
+    const int r = cps::generic_for(physics, P, Q, jacobian, is_double, nelem,
+                                   &g, &lim);
+    if (r != 0) return r;
+    const bool smem = g.body == cps::kBodySmem;
     out[0] = g.elems;
-    out[1] = cps::kGenericThreads;
+    out[1] = g.threads;
     out[2] = static_cast<long long>(g.smem);
-    out[3] = (nelem + out[0] - 1) / out[0];
-    out[4] = 2;
+    out[3] = g.tiles;
+    out[4] = smem ? 2 : 3;
     out[5] = 1;
+    if (!smem)
+      out[6] = cps::bulk_path(tsize, nelem, Q, qdata, stash, stash_in) ? 1 : 0;
+    out[7] = g.body;
     return 0;
   }
   if (!cps::has_instance(physics, P, Q)) return -1;
-  const bool stash_in = jacobian && cps::has_stash(physics);
   if (cps::block_tile(physics, jacobian, P, Q, tsize)) {
     const cps::TilePlan t = cps::tile_plan(P, Q, tsize, stash_in ? 19 : 10,
                                            physics == cps::kIncompPressure);

@@ -23,11 +23,13 @@ the plain version. A (physics, P, Q) with a template instance
 (`Pointwise.instances`) feeds its per-point streams into shared memory by
 TMA bulk copies or by cp.async, as `copy_path` says (the kernel decides by
 the same rule); every other pair runs on the generic tile, whose P and Q
-are run-time arguments (`is_generic`; `generic_plan` sizes its tile, and
-`require_fits` refuses one whose shared memory exceeds what a block may
-have). `COUNTS.by_path` counts each path: "bulk", "async", "generic".
-`plan` reports the launch the kernel makes (tile, threads, shared memory,
-path).
+are run-time arguments (`is_generic`): a register body up to P, Q = 8,
+the shared-memory body above (`generic_plan` sizes the tile from the
+element count and the card's SMs, and `require_fits` refuses one whose
+shared memory exceeds what a block may have). `COUNTS.by_path` counts
+each path: "bulk", "async", "generic", "generic_smem". `plan` reports the
+launch the kernel makes (tile, threads, shared memory, path, the generic
+tile's body and copy path).
 
 `min_bytes` and `min_flops` count what one apply must move and compute,
 from shapes alone; `bound_ms` turns them into the least time the card
@@ -44,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -64,16 +66,33 @@ INSTANTIATED_PQ = frozenset((P, Q) for Q in range(2, MAX_Q + 1)
 REDUCED_PQ = frozenset((P, 1) for P in range(2, MAX_Q + 1))
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
-# The generic tile (csrc/fused_apply.cu generic_tile_kernel, generic_plan):
-# threads a block, the most elements a tile, the shared memory a tile of
-# more than one element may take, and the range of P and Q it takes. The
-# most dynamic shared memory a block of the H100 may opt in to
+# The generic tile (csrc/fused_apply.cu generic_launch). Its register
+# bodies (generic_reg_kernel) take P, Q <= GENERIC_REG_CAP: a warp a tile
+# for Q <= GENERIC_WARP_Q (GENERIC_CAPS: "warp3x2", "warp6x2", "warp8x3",
+# the first whose caps hold (P, Q)), a block of up to GENERIC_THREADS
+# threads a tile above ("block8x8"); a tile grows past one element only
+# once the card has GENERIC_WARPS_PER_SM warp tiles (a block tile) an SM.
+# Above the cap the shared-memory body
+# (generic_tile_kernel, "smem") takes GENERIC_THREADS threads, at most
+# GENERIC_MAX_ELEMS elements a tile. A tile of more than one element stays
+# within GENERIC_BUDGET bytes of shared memory; the most dynamic shared
+# memory a block of the H100 may opt in to
 # (cudaDevAttrMaxSharedMemoryPerBlockOptin) bounds a one-element tile.
 GENERIC_THREADS = 256
 GENERIC_MAX_ELEMS = 64
 GENERIC_BUDGET = 64 * 1024
 GENERIC_MAX_PQ = 64
+GENERIC_REG_CAP = 8
+GENERIC_WARP_Q = 3
+GENERIC_WARPS_PER_SM = 4
 H100_SMEM_PER_BLOCK = 232_448
+H100_SMS = 132
+BAR_BYTES = 16          # the tile's mbarrier, padded to 16 bytes
+# cps_fused_plan's body codes of the generic tile
+GENERIC_BODIES = {0: "smem", 1: "warp3x2", 2: "warp6x2", 3: "warp8x3",
+                  4: "block8x8"}
+# the register bodies' caps (PC >= P, QC >= Q) of their row arrays
+GENERIC_CAPS = {1: (3, 2), 2: (6, 2), 3: (8, 3), 4: (8, 8)}
 
 
 @dataclass(frozen=True)
@@ -133,8 +152,9 @@ def pointwise(physics: str | Pointwise) -> Pointwise:
 
 
 class LaunchCounts:
-    """Kernel launches per mode, per (mode, P, Q), per (physics, mode, P, Q)
-    and per (mode, path), counted where the wrapper launches. Launch
+    """Kernel launches per mode, per (mode, P, Q), per (physics, mode, P, Q),
+    per (physics, mode, P, Q, elements) and per (mode, path), counted where
+    the wrapper launches. Launch
     bookkeeping only: nothing reads it to decide anything."""
 
     def __init__(self):
@@ -145,10 +165,11 @@ class LaunchCounts:
         self.jacobian_launches = 0
         self.by_pq = {}             # ("residual" | "jacobian", P, Q) -> n
         self.by_physics = {}        # (physics, mode, P, Q) -> n
-        self.by_path = {}           # (mode, "bulk" | "async" | "generic") -> n
+        self.by_shape = {}          # (physics, mode, P, Q, nelem) -> n
+        self.by_path = {}           # (mode, launch_path) -> n
 
     def add(self, mode: str, basis: Basis3D, physics: str = "hyperFS",
-            path: str = "bulk"):
+            path: str = "bulk", nelem: int = 0):
         if mode == "residual":
             self.residual_launches += 1
         else:
@@ -157,6 +178,8 @@ class LaunchCounts:
         self.by_pq[key] = self.by_pq.get(key, 0) + 1
         key = (physics, *key)
         self.by_physics[key] = self.by_physics.get(key, 0) + 1
+        key = (*key, nelem)
+        self.by_shape[key] = self.by_shape.get(key, 0) + 1
         key = (mode, path)
         self.by_path[key] = self.by_path.get(key, 0) + 1
 
@@ -217,19 +240,83 @@ def is_generic(physics, P: int, Q: int) -> bool:
     return (P, Q) not in pointwise(physics).instances
 
 
-def generic_plan(P: int, Q: int, dtype) -> tuple[int, int]:
-    """(elements a tile, dynamic shared memory bytes a block) of the
-    generic tile: B and D, and per element buffer A (ue -> t2 -> adjoint
-    t2) and buffer B (t1 -> dv -> adjoint t1); about a thread a quadrature
-    point, within GENERIC_BUDGET once a tile holds more than one element
-    (csrc/fused_apply.cu generic_plan, mirrored)."""
+class GenericPlan(NamedTuple):
+    """The generic tile's launch (csrc/fused_apply.cu generic_launch)."""
+
+    path: str       # "generic" (a register body) | "generic_smem"
+    body: str       # GENERIC_BODIES
+    elems: int      # elements a tile (one tile a block)
+    threads: int    # threads a block
+    smem: int       # dynamic shared memory a block, bytes
+    tiles: int      # blocks
+
+
+def generic_body(P: int, Q: int) -> int:
+    """The generic tile's body at (P, Q) (GENERIC_BODIES): 0 smem above
+    GENERIC_REG_CAP, 4 block8x8 above GENERIC_WARP_Q, else the first warp
+    body whose caps hold (P, Q)."""
+    if P > GENERIC_REG_CAP or Q > GENERIC_REG_CAP:
+        return 0
+    if Q > GENERIC_WARP_Q:
+        return 4
+    return next(b for b in (1, 2, 3)
+                if P <= GENERIC_CAPS[b][0] and Q <= GENERIC_CAPS[b][1])
+
+
+def generic_plan(P: int, Q: int, dtype, nelem: int, sms: int = H100_SMS,
+                 planes: int = 19) -> GenericPlan:
+    """The generic tile's launch for `nelem` elements on a card of `sms`
+    SMs; `planes`: the per-point streams a register body stages (19 in a
+    J.v that reads a stash, else 10). csrc/fused_apply.cu generic_launch,
+    mirrored.
+
+    Register bodies (P, Q <= 8), in words: B, D as Q rows of PCV and B^T,
+    D^T as P rows of QCV (the body's caps GENERIC_CAPS rounded up to 16
+    bytes); per element buffer A max(3 P^2 PP, 9 Q^2 PP, 9 P Q QQ) and
+    buffer B max(6 P Q PP, 9 Q^3, 6 P^2 QQ), PP = P | 1, QQ = Q | 1; per
+    staged plane E Q^3 rounded up to 16 bytes, + 16 bytes. E is at most
+    32 // Q^3 (a warp tile) or 256 // Q^3 (a block tile, at least 1), at
+    most nelem // (4 sms) (warp) or nelem // sms (block), at least 1, and
+    shrinks while above GENERIC_BUDGET. A block tile's threads: its E Q^3
+    points (or 3 E max(P, Q)^2 lines, if more) over the fewest passes of
+    at most 256, spread evenly, rounded up to a warp. The smem body: B and
+    D (2 Q P)
+    and per element max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3) words,
+    min(64, 256 // Q^3) elements (at least 1), fewer while above
+    GENERIC_BUDGET."""
     w = torch.empty((), dtype=dtype).element_size()
-    per = max(3 * P ** 3, 9 * P * Q * Q) + max(6 * P * P * Q, 9 * Q ** 3)
-    bd = 2 * Q * P
-    E = max(1, min(GENERIC_MAX_ELEMS, GENERIC_THREADS // Q ** 3))
-    while E > 1 and w * (bd + E * per) > GENERIC_BUDGET:
+    body = generic_body(P, Q)
+    Q3 = Q ** 3
+    if body == 0:
+        per = max(3 * P ** 3, 9 * P * Q * Q) + max(6 * P * P * Q, 9 * Q3)
+        bd = 2 * Q * P
+        E = max(1, min(GENERIC_MAX_ELEMS, GENERIC_THREADS // Q3))
+        while E > 1 and w * (bd + E * per) > GENERIC_BUDGET:
+            E -= 1
+        return GenericPlan("generic_smem", GENERIC_BODIES[0], E,
+                           GENERIC_THREADS, w * (bd + E * per),
+                           -(-nelem // E))
+    PC, QC = GENERIC_CAPS[body]
+    V, PP, QQ = 16 // w, P | 1, Q | 1
+    a = max(3 * P * P * PP, 9 * Q * Q * PP, 9 * P * Q * QQ)
+    b = max(6 * P * Q * PP, 9 * Q3, 6 * P * P * QQ)
+    bd = 2 * Q * (-(-PC // V) * V) + 2 * P * (-(-QC // V) * V)
+    warp = body != 4
+    most = max(1, (32 if warp else GENERIC_THREADS) // Q3)
+    E = min(most, max(1, nelem // ((GENERIC_WARPS_PER_SM if warp else 1)
+                                   * sms)))
+
+    def smem(e):
+        stride = -(-e * Q3 // V) * V + V
+        return BAR_BYTES + w * (bd + planes * stride + e * (a + b))
+
+    while E > 1 and smem(E) > GENERIC_BUDGET:
         E -= 1
-    return E, w * (bd + E * per)
+    n = max(E * Q3, 3 * E * max(P, Q) ** 2)
+    passes = -(-n // GENERIC_THREADS)
+    threads = 32 if warp else -(-(-(-n // passes)) // 32) * 32
+    return GenericPlan("generic", GENERIC_BODIES[body], E, threads, smem(E),
+                       -(-nelem // E))
 
 
 def require_fits(physics, P: int, Q: int, dtype):
@@ -242,7 +329,7 @@ def require_fits(physics, P: int, Q: int, dtype):
         raise NotImplementedError(
             f"fused CUDA apply takes 2 <= P <= {GENERIC_MAX_PQ} and "
             f"1 <= Q <= {GENERIC_MAX_PQ}, not P={P}, Q={Q}")
-    _, smem = generic_plan(P, Q, dtype)
+    smem = generic_plan(P, Q, dtype, 1).smem
     if smem > H100_SMEM_PER_BLOCK:
         raise NotImplementedError(
             f"fused CUDA apply at P={P}, Q={Q} ({dtype}): its generic tile "
@@ -318,6 +405,12 @@ def _library():
     return lib
 
 
+# cps_fused_plan's out[]: elems, threads, smem, tiles, path, min_blocks,
+# the generic tile's copy path and body
+PLAN_WORDS = 8
+PATHS = ("async", "bulk", "generic_smem", "generic")
+
+
 @dataclass(frozen=True)
 class Plan:
     """The launch the kernel makes for one apply (csrc cps_fused_plan)."""
@@ -325,9 +418,11 @@ class Plan:
     elems: int          # elements a tile (one tile a block)
     threads: int        # threads a block
     smem: int           # dynamic shared memory a block, bytes
-    tiles: int          # blocks
-    path: str           # "bulk" | "async" | "generic"
+    tiles: int          # tiles (blocks, or tiles walked by the blocks)
+    path: str           # "bulk" | "async" | "generic" | "generic_smem"
     min_blocks: int     # resident blocks an SM that __launch_bounds__ asks
+    copy: str | None = None   # the generic tile's streams: "bulk" | "async"
+    body: str = ""      # the generic tile's body (GENERIC_BODIES)
 
 
 def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
@@ -336,16 +431,20 @@ def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
     library; no launch)."""
     pw = pointwise(physics)
     lib = lib or _library()
-    out = (ctypes.c_longlong * 6)()
+    out = (ctypes.c_longlong * PLAN_WORDS)(*([-1] * PLAN_WORDS))
     r = lib.cps_fused_plan(
         pw.kernel_id, int(jacobian), basis.P, basis.Q,
         _DTYPES[qdata.dtype], qdata.shape[1], qdata.data_ptr(),
         None if stash_in is None else stash_in.data_ptr(), out)
-    if r != 0:
+    if r == -1:
         raise NotImplementedError(f"fused apply has no kernel for P="
                                   f"{basis.P}, Q={basis.Q} of {pw.name}")
-    e, t, sm, tiles, path, mb = out
-    return Plan(e, t, sm, tiles, ("async", "bulk", "generic")[path], mb)
+    if r != 0:
+        raise RuntimeError(f"fused_apply plan: cuda error {r}")
+    e, t, sm, tiles, path, mb, copy, body = out
+    return Plan(e, t, sm, tiles, PATHS[path], mb,
+                None if copy < 0 else ("async", "bulk")[copy],
+                GENERIC_BODIES.get(body, ""))
 
 
 def _check(u, conn, qdata, basis: Basis3D, stash,
@@ -412,7 +511,8 @@ def launch_path(pw: Pointwise, basis: Basis3D, qdata,
                 stash_in=None) -> str:
     """The path a launch takes, as COUNTS.by_path counts it."""
     if is_generic(pw, basis.P, basis.Q):
-        return "generic"
+        return "generic_smem" if generic_body(basis.P, basis.Q) == 0 \
+            else "generic"
     return copy_path(qdata, stash_in)
 
 
@@ -436,7 +536,8 @@ def residual(u, conn, qdata, basis: Basis3D, phys: Physics,
                          device=u.device) if pw.stash else None)
     _check(u, conn, qdata, basis, stash, pw)
     _launch(False, u, conn, qdata, basis, stash, ve, phys, pw)
-    COUNTS.add("residual", basis, pw.name, launch_path(pw, basis, qdata))
+    COUNTS.add("residual", basis, pw.name, launch_path(pw, basis, qdata),
+               nelem)
     return ve, stash
 
 
@@ -453,5 +554,5 @@ def jacobian(v, conn, qdata, stash, basis: Basis3D, phys: Physics,
                      device=v.device)
     _launch(True, v, conn, qdata, basis, stash, ve, phys, pw)
     COUNTS.add("jacobian", basis, pw.name,
-               launch_path(pw, basis, qdata, stash))
+               launch_path(pw, basis, qdata, stash), conn.shape[0])
     return ve

@@ -36,6 +36,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import default_dtype, select_device
 from ..mesh.fespace import FESpace
 from ..models.base import Mat3
 from . import fused_apply, geometry
@@ -63,16 +64,21 @@ class OperatorFactory:
     or one per multigrid level (coarse -> fine)."""
 
     def __init__(self, spaces: FESpace | list[FESpace], qextra: int = 0,
-                 dtype=torch.float64, device="cpu", q1d: int | None = None,
+                 dtype=None, device=None, q1d: int | None = None,
                  share: "OperatorFactory | None" = None):
-        """q1d overrides the quadrature size (the reduced-integration
-        pressure operator of hyperFSIncomp, Q = 1 + qextra,
-        src/setuplibceed.c:406). share: a factory over the same spaces
-        whose restrictions this one reuses (identical index maps)."""
+        """device: None is CUDA, raising without a CUDA device
+        (device.select_device); the CPU runs only when named. dtype: None
+        is device.default_dtype, float32 on CUDA and float64 on the CPU,
+        as ElasticityProblem chooses. q1d overrides
+        the quadrature size (the reduced-integration pressure operator of
+        hyperFSIncomp, Q = 1 + qextra, src/setuplibceed.c:406). share: a
+        factory over the same spaces whose restrictions this one reuses
+        (identical index maps)."""
         if isinstance(spaces, FESpace):
             spaces = [spaces]
-        self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = select_device(device)
+        self.dtype = dtype = (default_dtype(self.device) if dtype is None
+                              else dtype)
         fine = spaces[-1]
         # setuplibceed.c:252
         self.Q1d = q1d if q1d is not None else fine.degree + 1 + qextra

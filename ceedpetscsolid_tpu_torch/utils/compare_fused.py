@@ -19,12 +19,24 @@ inputs, it:
   * prints both times beside the bound from shapes (fused_apply.bound_ms)
     and each one's share of it.
 Then the P < Q instances (2, 5), (3, 5), (5, 6) of hyperFS on the 16^3 box
-in float32. Needs a CUDA device; prints the card's name and power limit.
+in float32. Then the generic tile at the shapes where the solves launch it
+(GENERIC_SHAPES: the pressure term at (5, 2), (3, 2), (2, 2) on the 8^3 box,
+phase 14 of chip_smoke.py, and at (5, 2) on 24^3; hyperFS at (7, 7) on the
+6^3 box, phase 15, and on 12^3), both modes, float32 and float64, each
+library's launch plan printed beside its time (elements a tile, tiles,
+threads, shared memory, path). `--generic` runs these alone. `--solve`
+adds an end-to-end turn: chip_smoke.py phase 14's problem (hyperFSIncomp,
+degree 4, -qextra 1, the 8^3 clamp, p-MG + AMG, float32), its clamped face
+translated by SOLVE_SHIFT of the box, solved with each library's kernels
+in turns (parent, this, this, parent): solve seconds, SNES and KSP counts,
+energy. Needs a CUDA device; prints the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -45,6 +57,17 @@ PHYSICS = ("hyperFS", "linElas", "hyperSS", "hyperFSIncomp",
            "hyperFSIncomp-pressure")
 PQ_LESS = ((2, 5), (3, 5), (5, 6))
 PQ_LESS_BOX = 16
+# (physics, P, Q, box): the generic tile where the solves launch it
+GENERIC_SHAPES = (("hyperFSIncomp-pressure", 5, 2, 8),
+                  ("hyperFSIncomp-pressure", 3, 2, 8),
+                  ("hyperFSIncomp-pressure", 2, 2, 8),
+                  ("hyperFSIncomp-pressure", 5, 2, 24),
+                  ("hyperFS", 7, 7, 6),
+                  ("hyperFS", 7, 7, 12))
+# --solve's clamp translation, a hundredth of the box: at chip_smoke.py's
+# 0.05 a float32 solve takes ~100 s on the H100 (128 Newton steps), and
+# --solve runs four
+SOLVE_SHIFT = 0.01
 
 
 def renamed_source(csrc: Path, out: Path) -> Path:
@@ -58,6 +81,22 @@ def renamed_source(csrc: Path, out: Path) -> Path:
     if not dst.exists() or dst.read_text() != src:
         dst.write_text(src)
     return out
+
+
+def parent_units(src: str) -> tuple:
+    """This checkout's fused-apply units, cut to what `src` builds: a
+    source from before the generic tile has no units for it, one from
+    before its bodies one generic unit a physics."""
+    units = []
+    for name, flags in FUSED_UNITS:
+        if any("GENERIC" in f for f in flags):
+            if "CPS_FUSED_GENERIC" not in src:
+                continue
+            if "CPS_GENERIC_BODY" not in src:
+                flags = tuple(f for f in flags if "GENERIC_BODY" not in f)
+        if (name, flags) not in units:
+            units.append((name, flags))
+    return tuple(units)
 
 
 def card_line() -> str:
@@ -86,6 +125,45 @@ def agree(got, ref) -> bool:
     if ref.dtype == torch.float64:
         return float(err.max()) <= 1e-12 * mx
     return bool((err <= 2e-5 * ref.double().abs() + 1e-6 * mx).all())
+
+
+@contextlib.contextmanager
+def library(lib):
+    """Every fused apply of the package launches `lib`'s kernels."""
+    saved = fa._library
+    fa._library = lambda: lib
+    try:
+        yield
+    finally:
+        fa._library = saved
+
+
+def solve_turns(libs, device) -> dict:
+    """Phase 14's problem with each library in turns: name -> list of
+    (solve seconds, SNES, KSP, strain energy)."""
+    from ..problem import Config, ElasticityProblem
+
+    out = {"parent": [], "this": []}
+    for name in ("parent", "this", "this", "parent"):
+        cfg = Config(problem="hyperFSIncomp", degree=4, qextra=1, nu=0.49,
+                     E=1e6, forcing="none", bc_clamp=(6, 5),
+                     bc_clamp_translate={5: (SOLVE_SHIFT, 0.0, 0.0)},
+                     num_increments=1, multigrid="logarithmic",
+                     nu_smoother=0.3, box_faces=(8, 8, 8), device=device,
+                     dtype=torch.float32, ksp_rtol=1e-6)
+        cfg.newton.rtol = 1e-6
+        with library(libs[name]):
+            p = ElasticityProblem(cfg)
+            info = p.solve()
+        out[name].append((info.solve_time, info.snes_iters, info.ksp_iters,
+                          p.strain_energy(info.u)))
+    return out
+
+
+def plan_text(p: fa.Plan) -> str:
+    return (f"{p.elems} el x {p.tiles} tiles, {p.threads} thr, {p.smem} B, "
+            f"{p.path}" + (f" {p.body}" if p.body else "")
+            + (f" {p.copy}" if p.copy else ""))
 
 
 def compare_case(libs, f, q, u, v, physics, phys) -> list[dict]:
@@ -120,7 +198,9 @@ def compare_case(libs, f, q, u, v, physics, phys) -> list[dict]:
         t = {k: sum(v_) / len(v_) for k, v_ in times.items()}
         bound, by = fa.bound_ms(pw, mode, b.P, b.Q, nelem,
                                 f.space.num_nodes, dt)
-        p = fa.plan(jac, q, b, st_in, pw, lib=libs["this"])
+        plans = {name: fa.plan(jac, q, b, st_in, pw, lib=lib)
+                 for name, lib in libs.items()}
+        p = plans["this"]
         rows.append({
             "physics": pw.name, "mode": mode, "P": b.P, "Q": b.Q,
             "dtype": str(dt).removeprefix("torch."), "nelem": nelem,
@@ -128,7 +208,8 @@ def compare_case(libs, f, q, u, v, physics, phys) -> list[dict]:
             "turns_ms": times, "bound_ms": bound, "bound_by": by,
             "parent_share": bound / t["parent"], "share": bound / t["this"],
             "agree": ok, "tile_elems": p.elems, "smem": p.smem,
-            "path": p.path})
+            "path": p.path, "box": round(nelem ** (1 / 3)),
+            "plans": {k: plan_text(v) for k, v in plans.items()}})
     return rows
 
 
@@ -138,6 +219,10 @@ def main(argv=None) -> int:
                     help="a checkout of the commit to compare with")
     ap.add_argument("--box", type=int, default=24)
     ap.add_argument("--json", type=Path, default=None)
+    ap.add_argument("--generic", action="store_true",
+                    help="only the generic tile at GENERIC_SHAPES")
+    ap.add_argument("--solve", action="store_true",
+                    help="add phase 14's solve with each library in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_fused: no CUDA device", file=sys.stderr)
@@ -148,45 +233,60 @@ def main(argv=None) -> int:
     out = BUILD_DIR.parent / "compare"
     parent_csrc = renamed_source(
         args.parent / "ceedpetscsolid_tpu_torch" / "csrc", out / "src")
-    # a source from before the generic tile has no units of its own for it
-    generic = "CPS_FUSED_GENERIC" in (parent_csrc / "fused_apply.cu").read_text()
-    units = tuple(u for u in FUSED_UNITS
-                  if generic or not any("GENERIC" in f for f in u[1]))
-    path, _ = build(parent_csrc, out, units)
+    path, _ = build(parent_csrc, out, parent_units(
+        (parent_csrc / "fused_apply.cu").read_text()))
     parent = ctypes.CDLL(str(path))
     this = fa._library()
     parent.cps_fused_apply.argtypes = this.cps_fused_apply.argtypes
     parent.cps_fused_apply.restype = ctypes.c_int
+    parent.cps_fused_plan.argtypes = this.cps_fused_plan.argtypes
+    parent.cps_fused_plan.restype = ctypes.c_int
     libs = {"parent": parent, "this": this}
     card = card_line()
     print(f"card: {card}; parent {args.parent}")
     phys = Physics(nu=0.3, E=1.0)
     rows = []
     for dt in (torch.float32, torch.float64):
-        for physics in PHYSICS:
+        for physics in () if args.generic else PHYSICS:
             q1d = 1 if physics.endswith("pressure") else None
             f, q, u, v = inputs(args.box, 4, dt, dev, q1d=q1d)
             rows += compare_case(libs, f, q, u, v, physics, phys)
             del f, q, u, v
             torch.cuda.empty_cache()
-    for P, Q in PQ_LESS:
+    for P, Q in () if args.generic else PQ_LESS:
         f, q, u, v = inputs(PQ_LESS_BOX, P - 1, torch.float32, dev,
                             qextra=Q - P)
         rows += compare_case(libs, f, q, u, v, "hyperFS", phys)
+    for dt in (torch.float32, torch.float64):
+        for physics, P, Q, box in GENERIC_SHAPES:
+            f, q, u, v = inputs(box, P - 1, dt, dev, q1d=Q)
+            rows += compare_case(libs, f, q, u, v, physics, phys)
+            del f, q, u, v
+            torch.cuda.empty_cache()
     print(f"device ms, parent / this (mean of two turns each), bound from "
           f"shapes and share of it ({card}):")
     for r in rows:
         print(f"  {r['physics']:24s} ({r['P']},{r['Q']}) {r['dtype']:7s} "
-              f"{r['mode']:8s} nelem {r['nelem']:6d}: parent "
+              f"{r['mode']:8s} {r['box']}^3: parent "
               f"{r['parent_ms']:.4f}  this {r['ms']:.4f} ms  bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})  share "
-              f"{r['parent_share']:.3f} -> {r['share']:.3f}  tile "
-              f"{r['tile_elems']} x{r['smem']} B {r['path']}  "
+              f"{r['parent_share']:.3f} -> {r['share']:.3f}  "
               f"{'agree' if r['agree'] else 'DIFFER'}")
+        print(f"      plan parent: {r['plans']['parent']}; this: "
+              f"{r['plans']['this']}")
+    solves = None
+    if args.solve:
+        solves = solve_turns(libs, dev)
+        print(f"phase 14's solve, shift {SOLVE_SHIFT}, float32 "
+              f"({card}): (solve s, SNES, KSP, energy) in turns")
+        for name, runs in solves.items():
+            for t, snes, ksp, w in runs:
+                print(f"  {name:6s} {t:.3f} s  SNES {snes}  KSP {ksp}  "
+                      f"energy {w:.10e}")
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps({"card": card, "rows": rows},
-                                        indent=1))
+        args.json.write_text(json.dumps({"card": card, "rows": rows,
+                                         "solves": solves}, indent=1))
     if not all(r["agree"] for r in rows):
         print("compare_fused: the two kernels disagree", file=sys.stderr)
         return 1

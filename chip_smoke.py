@@ -41,9 +41,17 @@ Phases, each of which raises on failure:
      tolerances: the pressure term at (P, Q), P = 2..5, Q = 2, 3, on the
      4^3 box and the scrambled 4^3 box; hyperFS and linElas at (7, 7),
      (8, 8), (6, 7), (2, 7) on the 3^3 box; hyperFS at (10, 10) on one
-     element (float64 and float32); then call and device times, float32,
-     beside the bound, of the pressure term at (5, 2) on 24^3 and hyperFS
-     at (7, 7) on 12^3;
+     element (float64 and float32: the shared-memory body); the tile's
+     edges (GENERIC_EDGES: one element, misaligned streams, tiles of two
+     elements with a ragged last one); every body of the plan
+     (fused_apply.GENERIC_BODIES) must run, each register body by both
+     copy paths, with tiles of one element on fewer tiles than SMs and of
+     more than one; then, where the solves launch the generic tile
+     (GENERIC_TIMED: the pressure term at (5, 2), (3, 2), (2, 2) on 8^3,
+     phase 14; hyperFS (7, 7) on 6^3, phase 15) and at (5, 2) on 24^3 and
+     (7, 7) on 12^3, each shape held against the plain version as above
+     and then timed, float32, call and device, beside the bound and the
+     launch plan;
   4. CUDA-event times (median of 20 calls after warm-up) of kernel and plain
      version, residual and J.v, at the 24^3 degree-4 shapes, in float32: of
      one call, the host's enqueue included, and of the device's work alone
@@ -165,6 +173,28 @@ CLAMP = {                            # tests/test_amg.py, tests/test_incomp.py
                           nu_smoother=0.3),
 }
 GENERIC_PQ = ((7, 7), (8, 8), (6, 7), (2, 7))     # phase 3d, Q > 6
+# phase 3d's tile edges: (label, box faces, P, Q, physics, misaligned
+# streams). One element (at Q = 3 a 108-byte plane: cp.async); streams one
+# word off 16 bytes (cp.async: a Q = 2 plane is always a multiple of 16
+# bytes); warp tiles of 2 elements (1,331 // (4 x 132)) and a block tile
+# of 2 (343 // 132), each with a ragged last tile
+GENERIC_EDGES = (("1^3", (1, 1, 1), 5, 2, PRESSURE, False),
+                 ("1^3", (1, 1, 1), 3, 3, PRESSURE, False),
+                 ("1^3", (1, 1, 1), 7, 7, "hyperFS", False),
+                 ("4^3 misaligned", (4, 4, 4), 3, 2, PRESSURE, True),
+                 ("4^3 misaligned", (4, 4, 4), 5, 2, PRESSURE, True),
+                 ("11^3", (11, 11, 11), 5, 2, PRESSURE, False),
+                 ("11^3", (11, 11, 11), 3, 2, PRESSURE, False),
+                 ("11^3", (11, 11, 11), 7, 1, PRESSURE, False),
+                 ("7^3", (7, 7, 7), 3, 4, PRESSURE, False))
+# phase 3d's times: (physics, box, P, Q, modes): where phase 14's and 15's
+# solves launch the generic tile (8^3, 6^3), then 24^3 and 12^3
+GENERIC_TIMED = ((PRESSURE, 8, 5, 2, ("residual", "jacobian")),
+                 (PRESSURE, 8, 3, 2, ("jacobian",)),
+                 (PRESSURE, 8, 2, 2, ("jacobian",)),
+                 ("hyperFS", 6, 7, 7, ("residual", "jacobian")),
+                 (PRESSURE, 24, 5, 2, ("residual", "jacobian")),
+                 ("hyperFS", 12, 7, 7, ("residual", "jacobian")))
 # phase 14: phase 12's hyperFSIncomp clamp at degree 4 with -qextra 1. Its
 # float32 solve reaches its float64 twin's answer by another Newton path
 # (more steps: float64's are indefinite at first, float32's sit near their
@@ -262,12 +292,13 @@ def misaligned(t):
 
 
 def check_kernel(label, mesh, degree, device, phys, qextra=0,
-                 physics="hyperFS", q1d=None, shift=False):
+                 physics="hyperFS", q1d=None, shift=False, plans=None):
     """Kernel vs plain on one mesh/degree (P = degree + 1, Q = P + qextra,
     or q1d), f64 and f32; returns the f32 max abs errors (residual ve,
     J.v). A physics without a stash (linElas) must return none. With
     `shift` the kernel reads qdata and the stash from copies one word off
-    16 bytes."""
+    16 bytes. `plans`, a list, gets the launch plan of each of the four
+    launches (fused_apply.plan)."""
     import torch
 
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
@@ -291,6 +322,9 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
     pairs = [(nm, a, b) for nm, a, b in pairs if b is not None]
     for nm, a, b in pairs:
         compare(f"{label} f64 {nm}", a, b, True)
+    if plans is not None:
+        plans += [fa.plan(False, moved(q), b64, None, physics),
+                  fa.plan(True, moved(q), b64, moved(st0), physics)]
     f32 = torch.float32
     b32 = Basis3D.create(b64.P, b64.Q, "gauss", f32, device)
     q32 = moved(q.to(f32))
@@ -298,6 +332,10 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
     jv = fa.jacobian(v.to(f32), conn, q32, None if st0 is None else
                      moved(st0.to(f32)), b32, phys, physics)
     torch.cuda.synchronize()
+    if plans is not None:
+        st32 = None if st0 is None else moved(st0.to(f32))
+        plans += [fa.plan(False, q32, b32, None, physics),
+                  fa.plan(True, q32, b32, st32, physics)]
     e_r = compare(f"{label} f32 residual ve", ve, ve0, False)
     if st0 is not None:
         compare(f"{label} f32 stash", st, st0, False)
@@ -640,35 +678,61 @@ def main():
     # ---- 3d. the generic tile vs plain version -----------------------------
     log("[3d] the generic tile (P, Q at run time) vs plain version")
     fa.COUNTS.reset()
-    generr = {PRESSURE: (), "hyperFS": (), "linElas": ()}
+    gplans = []
     for P in range(2, 6):
         for Q in (2, 3):
             for label, mesh in (("box", box_mesh((4, 4, 4))),
                                 ("scrambled",
                                  scrambled_box_mesh((4, 4, 4), 4))):
-                generr[PRESSURE] += check_kernel(
-                    f"4^3 (P,Q)=({P},{Q}) {label} pressure", mesh, P - 1,
-                    dev, phys, physics=PRESSURE, q1d=Q)
+                check_kernel(f"4^3 (P,Q)=({P},{Q}) {label} pressure",
+                             mesh, P - 1, dev, phys, physics=PRESSURE, q1d=Q,
+                             plans=gplans)
     for P, Q in GENERIC_PQ:
         for ph in ("hyperFS", "linElas"):
-            generr[ph] += check_kernel(f"3^3 (P,Q)=({P},{Q}) box {ph}",
-                                     box_mesh((3, 3, 3)), P - 1, dev, phys,
-                                     physics=ph, q1d=Q)
-    generr["hyperFS"] += check_kernel("1^3 (P,Q)=(10,10) box",
-                                    box_mesh((1, 1, 1)), 9, dev, phys,
-                                    q1d=10)
+            check_kernel(f"3^3 (P,Q)=({P},{Q}) box {ph}",
+                         box_mesh((3, 3, 3)), P - 1, dev, phys, physics=ph,
+                         q1d=Q, plans=gplans)
+    check_kernel("1^3 (P,Q)=(10,10) box", box_mesh((1, 1, 1)), 9, dev, phys,
+                 q1d=10, plans=gplans)
+    # the tile's edges: one element, and tiles of more than one element
+    # whose last is ragged (GENERIC_EDGES)
+    for label, faces, P, Q, ph, shift in GENERIC_EDGES:
+        check_kernel(f"{label} (P,Q)=({P},{Q}) {ph}", box_mesh(faces),
+                     P - 1, dev, phys, physics=ph, q1d=Q, plans=gplans,
+                     shift=shift)
     if FAILED:
         raise AssertionError(f"kernel disagrees with plain version: {FAILED}")
     paths = dict(fa.COUNTS.by_path)
     log(f"    launches per path: {paths}")
-    if set(paths) != {("residual", "generic"), ("jacobian", "generic")}:
+    if set(paths) != {(m_, p_) for m_ in ("residual", "jacobian")
+                      for p_ in ("generic", "generic_smem")}:
         raise AssertionError(f"phase 3d ran another path: {paths}")
+    bodies = sorted({(p.body, p.copy) for p in gplans}, key=str)
+    edges = sorted({(p.body, p.elems > 1, p.tiles < torch.cuda.
+                     get_device_properties(dev).multi_processor_count)
+                    for p in gplans}, key=str)
+    log(f"    bodies and copy paths that ran: {bodies}")
+    log(f"    (body, elements a tile > 1, fewer tiles than SMs): {edges}")
+    regs = [b_ for b_ in fa.GENERIC_BODIES.values() if b_ != "smem"]
+    need_bodies = {("smem", None)} | {(b_, c_) for b_ in regs
+                                      for c_ in ("bulk", "async")}
+    need_edges = {(b_, m_, not m_) for b_ in regs for m_ in (True, False)}
+    if not need_bodies <= set(bodies) or not need_edges <= set(edges):
+        raise AssertionError(f"phase 3d missed a body, copy path or edge: "
+                             f"{bodies}, {edges}")
     gtimes3d = {}
     log(f"    times, float32 ({card}): call (host enqueue included) / "
-        "device alone")
-    for ph, box, deg, Q in ((PRESSURE, n, 4, 2), ("hyperFS", 12, 6, 7)):
-        f, q, u, v = make_case(box_mesh((box,) * 3), deg, torch.float32,
-                               dev, deg, q1d=Q)
+        "device alone; the solves' shapes, then 24^3 and 12^3")
+    for ph, box, P, Q, modes in GENERIC_TIMED:
+        # the shape's own agreement first: its row reports this error
+        errs = check_kernel(f"{box}^3 (P,Q)=({P},{Q}) {ph}",
+                            box_mesh((box,) * 3), P - 1, dev, phys,
+                            physics=ph, q1d=Q)
+        if FAILED:
+            raise AssertionError("kernel disagrees with plain version: "
+                                 f"{FAILED}")
+        f, q, u, v = make_case(box_mesh((box,) * 3), P - 1, torch.float32,
+                               dev, P, q1d=Q)
         conn, b = f.restr.conn, f.basis
         _, st = fa.residual_plain(u, conn, q, b, phys, ph)
         calls = {
@@ -679,21 +743,26 @@ def main():
             "jacobian_plain": lambda: fa.jacobian_plain(v, conn, q, st, b,
                                                         phys, ph),
         }
+        calls = {k: fn for k, fn in calls.items()
+                 if k.removesuffix("_plain") in modes}
         t = {k: time_ms(fn) for k, fn in calls.items()}
         d = {k: device_ms(fn, reps=10, inner=1) for k, fn in calls.items()}
         bounds = {mode: fa.bound_ms(ph, mode, b.P, b.Q, f.nelem,
                                     f.space.num_nodes, torch.float32)
-                  for mode in ("residual", "jacobian")}
-        gtimes3d[ph] = (t, d, bounds, (b.P, b.Q, box))
-        plan = fa.plan(False, q, b, None, ph)
-        for mode in ("residual", "jacobian"):
+                  for mode in modes}
+        plans = {mode: fa.plan(mode == "jacobian", q, b,
+                               st if mode == "jacobian" else None, ph)
+                 for mode in modes}
+        gtimes3d[(ph, b.P, b.Q, box)] = (t, d, bounds, plans, errs)
+        for mode in modes:
             bd, by = bounds[mode]
+            p = plans[mode]
             log(f"    {ph:24s} ({b.P},{b.Q}) {box}^3 {mode:8s} "
                 f"{t[mode]:.4f} / {d[mode]:.4f} ms  (plain "
                 f"{t[mode + '_plain']:.4f} / {d[mode + '_plain']:.4f} ms)  "
-                f"bound {bd:.4f} ms ({by}), share {bd / d[mode]:.3f}")
-        log(f"      tile: {plan.elems} element(s), {plan.threads} threads, "
-            f"{plan.smem} bytes of shared memory, {plan.tiles} blocks")
+                f"bound {bd:.4f} ms ({by}), share {bd / d[mode]:.3f}; "
+                f"{p.body} {p.copy}: {p.elems} element(s) x {p.tiles} "
+                f"tiles, {p.threads} threads, {p.smem} bytes")
         del f, q, u, v, st, calls
     torch.cuda.empty_cache()
 
@@ -755,10 +824,21 @@ def main():
         counts = dict(fa.COUNTS.by_physics if by_physics else fa.COUNTS.by_pq)
         last_paths.clear()
         last_paths.update(fa.COUNTS.by_path)
+        last_shapes.clear()
+        last_shapes.update(fa.COUNTS.by_shape)
         return prob, info, counts, prob.mms_error(info.u), \
             prob.strain_energy(info.u)
 
     last_paths = {}         # the last solve's fused-apply launches per path
+    last_shapes = {}        # ... per (physics, mode, P, Q, elements)
+    # the main paths' generic-tile launches per (physics, mode, P, Q,
+    # elements), from the solves that run it (phases 12, 14, 15)
+    generic_shapes = {}
+
+    def add_generic(shapes):
+        for key, k in shapes.items():
+            if fa.is_generic(key[0], *key[2:4]):
+                generic_shapes[key] = generic_shapes.get(key, 0) + k
 
     def report(tag, prob, info, counts, err, energy):
         log(f"{tag} {info.dofs} DoF, levels {prob.level_degrees}, setup "
@@ -968,8 +1048,11 @@ def main():
             fa.COUNTS.reset()
             i = p.solve()
             runs[dtype] = (p, i, dict(fa.COUNTS.by_physics),
-                           p.strain_energy(i.u), dict(fa.COUNTS.by_path))
-        (p32, i32, c32, w32, paths32), (p64, i64, _, w64, _) = runs.values()
+                           p.strain_energy(i.u), dict(fa.COUNTS.by_path),
+                           dict(fa.COUNTS.by_shape))
+        ((p32, i32, c32, w32, paths32, shapes32),
+         (p64, i64, _, w64, _, _)) = runs.values()
+        add_generic(shapes32)
         du = float(torch.linalg.norm(i32.u.double() - i64.u)
                    / torch.linalg.norm(i64.u))
         log(f"{tag} {name} clamp, degree {kw['degree']}"
@@ -1037,6 +1120,7 @@ def main():
     deg6 = dict(multigrid="logarithmic", level_quadrature="native",
                 coarse_solve="amg", degree=6, by_physics=True)
     prob, info, c15, err15, en15 = solve(torch.float32, DEGREE6_BOX, **deg6)
+    add_generic(last_shapes)
     report(f"[15] hyperFS p6 {DEGREE6_BOX}^3 float32, p-MG CG + AMG:", prob,
            info, c15, err15, en15)
     amg_report(prob, info)
@@ -1118,6 +1202,45 @@ def main():
         return {"bound_ms": b[0], "bound_by": b[1],
                 "bound_share": b[0] / device_ms}
 
+    def generic_rows():
+        """The generic tile's entries: one per (physics, mode, P, Q) at the
+        element count where the main paths launch it, with the launches
+        counted there; the same kernel timed on a larger mesh (24^3, 12^3),
+        which no main path launches, goes under "larger_mesh" of the entry
+        of its (physics, mode, P, Q)."""
+        rows, larger = {}, {}
+        for (ph, P, Q, box), (t, d, bd, pl, e) in gtimes3d.items():
+            for i, mode in enumerate(("residual", "jacobian")):
+                if mode not in t:
+                    continue
+                entry = {
+                    "box": box, "max_abs_err": e[i], "ms": t[mode],
+                    "plain_ms": t[mode + "_plain"], "device_ms": d[mode],
+                    "plain_device_ms": d[mode + "_plain"],
+                    **bound(bd[mode], d[mode]),
+                    "plan": {"body": pl[mode].body, "copy": pl[mode].copy,
+                             "elems": pl[mode].elems,
+                             "tiles": pl[mode].tiles,
+                             "threads": pl[mode].threads,
+                             "smem": pl[mode].smem}}
+                n_ = generic_shapes.get((ph, mode, P, Q, box ** 3), 0)
+                (rows if n_ else larger)[(ph, mode, P, Q)] = (n_, entry)
+        unrowed = {k[:4] for k in generic_shapes} - set(rows)
+        if unrowed or set(larger) - set(rows):
+            raise AssertionError(
+                "phase 3d timed no shape of a main-path generic launch "
+                f"{sorted(unrowed)}, or a shape beside none "
+                f"{sorted(set(larger) - set(rows))}")
+        return [
+            {"name": f"fused_apply_generic_{mode}[{ph} ({P},{Q}) "
+                     f"{e['box']}^3]",
+             "route": "cuda", "source": CU_SOURCE, "replaces": TPU_KERNEL,
+             "launches": n_, **e, "library_ms": None, "physics": ph,
+             "instances": instances(ph, mode, generic=True),
+             **({"larger_mesh": larger[key][1]} if key in larger else {})}
+            for key, (n_, e) in rows.items()
+            for ph, mode, P, Q in (key,)]
+
     # ms / plain_ms: one call, the host's enqueue included; device_ms:
     # the device's work alone; library_ms: one PyTorch call of the same
     # function (none computes the fused apply's)
@@ -1142,17 +1265,7 @@ def main():
          "library_ms": None, "physics": ph, "instances": instances(ph, mode)}
         for ph in (*NEW_PHYSICS, PRESSURE)
         for i, mode in enumerate(("residual", "jacobian"))
-    ] + [
-        {"name": f"fused_apply_generic_{mode}[{ph} ({P},{Q}) {box}^3]",
-         "route": "cuda", "source": CU_SOURCE, "replaces": TPU_KERNEL,
-         "launches": sum(instances(ph, mode, generic=True).values()),
-         "max_abs_err": max(generr[ph][i::2]), "ms": t[mode],
-         "plain_ms": t[mode + "_plain"], "device_ms": d[mode],
-         "plain_device_ms": d[mode + "_plain"], **bound(bd[mode], d[mode]),
-         "library_ms": None, "physics": ph,
-         "instances": instances(ph, mode, generic=True)}
-        for ph, (t, d, bd, (P, Q, box)) in gtimes3d.items()
-        for i, mode in enumerate(("residual", "jacobian"))
+    ] + generic_rows() + [
     ] + [
         {"name": f"gather_{name}", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_TPU[name], "launches": launches9[name],

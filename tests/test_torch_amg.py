@@ -43,7 +43,7 @@ def _p1_pair(name, kind, n, seed=3):
     jm, tm = mesh_pair(kind, n)
     jf = JFactory([jbuild(jm, 1)], dtype=jnp.float64, use_pallas=False,
                   use_spectral=False)
-    tf = TFactory(tbuild(tm, 1), dtype=torch.float64)
+    tf = TFactory(tbuild(tm, 1), dtype=torch.float64, device="cpu")
     jmod, tmod = jget_model(name), tget_model(name)
     jq = jf.compute_qdata()
     u = np.random.default_rng(seed).standard_normal(

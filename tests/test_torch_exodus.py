@@ -184,7 +184,8 @@ def test_reorder_matches_jax(kind):
 
 
 def _volume(mesh: HexMesh) -> float:
-    f = OperatorFactory(build_fespace(mesh, 2), dtype=torch.float64)
+    f = OperatorFactory(build_fespace(mesh, 2), dtype=torch.float64,
+                        device="cpu")
     return float(f.compute_qdata()[0].sum())
 
 

@@ -51,7 +51,7 @@ def test_plain_matches_jax_xla_f64(kind, n, degree):
     jm, tm = mesh_pair(kind, n)
     jf = JFactory([jbuild(jm, degree)], dtype=jnp.float64, use_pallas=False,
                   use_spectral=False)
-    tf = TFactory(tbuild(tm, degree), dtype=torch.float64)
+    tf = TFactory(tbuild(tm, degree), dtype=torch.float64, device="cpu")
     jq = jf.compute_qdata()
     u, v = _inputs(jf.fine.space.num_nodes, 3)
     jr, jst = jf.make_residual_structured(jhfs.residual_planes, JPHYS)(
@@ -83,7 +83,8 @@ def test_physics_plain_matches_jax_xla_f64(physics, kind, n, degree):
     q1d = 1 if pressure else None
     jf = JFactory([jbuild(jm, degree)], dtype=jnp.float64, use_pallas=False,
                   use_spectral=False, q1d=q1d)
-    tf = TFactory(tbuild(tm, degree), dtype=torch.float64, q1d=q1d)
+    tf = TFactory(tbuild(tm, degree), dtype=torch.float64, device="cpu",
+                  q1d=q1d)
     model = tget_model(physics.removesuffix("-pressure"))
     pre = "pressure_" if pressure else ""
     from ceedpetscsolid_tpu.models import get_model as jget_model
@@ -121,7 +122,7 @@ def test_plain_matches_jax_pallas_interpret_f32(kind, n, degree):
                      pallas_interpret=True, block_elems=16)
     xfac = JFactory([fes], dtype=jnp.float32, use_pallas=False,
                     use_spectral=False)
-    tf = TFactory(tbuild(tm, degree), dtype=torch.float32)
+    tf = TFactory(tbuild(tm, degree), dtype=torch.float32, device="cpu")
     qd = xfac.compute_qdata()
     qd_s = plfac.struct_qdata(qd)                  # lane/row padded
     u, v = _inputs(fes.num_nodes, 7)
@@ -148,7 +149,7 @@ def test_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors the wrapper is the plain version, and launches no
     kernel."""
     _, tm = mesh_pair("box", 2)
-    tf = TFactory(tbuild(tm, 2), dtype=torch.float64)
+    tf = TFactory(tbuild(tm, 2), dtype=torch.float64, device="cpu")
     q = tf.compute_qdata()
     u, v = (torch.as_tensor(a) for a in _inputs(tf.space.num_nodes, 1))
     before = (fused_apply.COUNTS.residual_launches,
@@ -167,7 +168,7 @@ def test_kernel_input_checks():
     """The kernel wrapper's validation (device-independent) refuses what
     the CUDA kernel does not take."""
     _, tm = mesh_pair("box", 2)
-    tf = TFactory(tbuild(tm, 2), dtype=torch.float64)
+    tf = TFactory(tbuild(tm, 2), dtype=torch.float64, device="cpu")
     q = tf.compute_qdata()
     u = torch.zeros((3, tf.space.num_nodes), dtype=torch.float64)
     st = torch.zeros((9, tf.nelem, tf.Q3), dtype=torch.float64)
@@ -183,12 +184,12 @@ def test_kernel_input_checks():
     with pytest.raises(TypeError):
         fused_apply._check(u, conn.int(), q, b, st)
     # P < Q is instantiated: (3, 4), degree 2 at -qextra 1
-    tf4 = TFactory(tbuild(tm, 2), qextra=1, dtype=torch.float64)
+    tf4 = TFactory(tbuild(tm, 2), qextra=1, dtype=torch.float64, device="cpu")
     fused_apply._check(u, tf4.restr.conn, tf4.compute_qdata(), tf4.basis,
                        torch.zeros((9, tf4.nelem, tf4.Q3), dtype=torch.float64))
     # (P, Q) = (3, 7), degree 2 at -qextra 4, has no template instance: the
     # generic tile takes it
-    tf5 = TFactory(tbuild(tm, 2), qextra=4, dtype=torch.float64)
+    tf5 = TFactory(tbuild(tm, 2), qextra=4, dtype=torch.float64, device="cpu")
     assert fused_apply.is_generic("hyperFS", 3, 7)
     fused_apply._check(u, tf5.restr.conn, tf5.compute_qdata(), tf5.basis,
                        torch.zeros((9, tf5.nelem, tf5.Q3), dtype=torch.float64))
@@ -203,14 +204,15 @@ def test_kernel_input_checks():
     fused_apply._check(u, conn, q, b, st, "hyperFSIncomp-pressure")
     # a generic tile above what a block's shared memory holds is refused,
     # naming the bytes: (12, 12) in float64
-    tb = TFactory(tbuild(box_mesh((1, 1, 1)), 11), dtype=torch.float64)
+    tb = TFactory(tbuild(box_mesh((1, 1, 1)), 11), dtype=torch.float64,
+                  device="cpu")
     with pytest.raises(NotImplementedError,
                        match="needs 251,136 bytes of shared memory"):
         fused_apply._check(torch.zeros((3, tb.space.num_nodes),
                                        dtype=torch.float64),
                            tb.restr.conn, tb.compute_qdata(), tb.basis,
                            torch.zeros((9, 1, 12 ** 3), dtype=torch.float64))
-    tp = TFactory(tbuild(tm, 2), dtype=torch.float64, q1d=1)
+    tp = TFactory(tbuild(tm, 2), dtype=torch.float64, device="cpu", q1d=1)
     fused_apply._check(u, tp.restr.conn, tp.compute_qdata(), tp.basis,
                        torch.zeros((9, tp.nelem, 1), dtype=torch.float64),
                        "hyperFSIncomp-pressure")
@@ -218,23 +220,68 @@ def test_kernel_input_checks():
         fused_apply.pointwise("neoHooke")
 
 
-@pytest.mark.parametrize("P,Q,dtype,elems,smem", [
-    (2, 2, torch.float64, 32, 36_928),      # 32 elements: a thread a point
-    (5, 2, torch.float32, 24, 64_880),      # 24 elements within 64 KB
-    (7, 7, torch.float32, 1, 25_088),
-    (10, 10, torch.float32, 1, 72_800),
-    (10, 10, torch.float64, 1, 145_600),
-    (11, 11, torch.float64, 1, 193_600),
-    (14, 14, torch.float32, 1, 199_136),
+@pytest.mark.parametrize("P,Q,dtype,nelem,body,elems,threads,smem", [
+    # a warp a tile (Q <= 3): 4 ** 3 elements, fewer than 4 x 132 warps
+    (2, 2, torch.float64, 64, "warp3x2", 1, 32, 3_168),
+    # 24^3: 13,824 // 528 = 26, so E = 32 // 8 = 4
+    (5, 2, torch.float32, 13_824, "warp6x2", 4, 32, 16_240),
+    (7, 7, torch.float32, 1_728, "block8x8", 1, 192, 52_056),
+    # above the register cap: the shared-memory body, one element a tile
+    (10, 10, torch.float32, 1, "smem", 1, 256, 72_800),
+    (10, 10, torch.float64, 1, "smem", 1, 256, 145_600),
+    (11, 11, torch.float64, 1, "smem", 1, 256, 193_600),
+    (14, 14, torch.float32, 1, "smem", 1, 256, 199_136),
+    # phase 14's 8^3 levels and phase 15's 6^3 fine level: one element a
+    # tile, a block each
+    (5, 2, torch.float32, 512, "warp6x2", 1, 32, 4_516),
+    (3, 2, torch.float32, 512, "warp3x2", 1, 32, 2_384),
+    (2, 2, torch.float32, 512, "warp3x2", 1, 32, 1_776),
+    (7, 7, torch.float32, 216, "block8x8", 1, 192, 52_056),
+    # 12^3: 1,728 // 528 = 3 elements a tile; Q = 1 takes up to 32
+    (5, 2, torch.float32, 1_728, "warp6x2", 3, 32, 12_332),
+    (8, 1, torch.float32, 1_331, "warp8x3", 2, 32, 18_224),
+    # a block tile of 343 // 132 = 2 elements at Q = 4: 128 points
+    (3, 4, torch.float32, 343, "block8x8", 2, 128, 19_424),
 ])
-def test_generic_plan_counted_by_hand(P, Q, dtype, elems, smem):
-    """The generic tile's plan (csrc/fused_apply.cu generic_plan): B and D
-    (2 Q P words), and per element max(3 P^3, 9 P Q^2) + max(6 P^2 Q,
-    9 Q^3) words; min(64, 256 // Q^3) elements, fewer while a tile of more
-    than one exceeds 64 KB. E.g. (5, 2) f32: 375 + 300 words an element,
-    24 of them and 20 words of B, D: 4 (20 + 24 * 675) = 64,880 bytes."""
-    assert fused_apply.generic_plan(P, Q, dtype) == (elems, smem)
+def test_generic_plan_counted_by_hand(P, Q, dtype, nelem, body, elems,
+                                      threads, smem):
+    """The generic tile's plan for a J.v (19 staged planes) on the H100's
+    132 SMs (csrc/fused_apply.cu generic_launch). Register bodies, in
+    words: B, D as Q rows of PCV and B^T, D^T as P rows of QCV (the body's
+    caps PC, QC rounded up to 16 bytes); per element buffer A max(3 P^2 PP,
+    9 Q^2 PP, 9 P Q QQ) and buffer B max(6 P Q PP, 9 Q^3, 6 P^2 QQ),
+    PP = P | 1, QQ = Q | 1; 19 planes of E Q^3 words rounded up to 16 bytes
+    plus 16; 16 bytes of mbarrier. E.g. (5, 2) f32 (warp6x2: PCV = 8,
+    QCV = 4): A = 375, B = 450, B/D 2 * 2 * 8 + 2 * 5 * 4 = 72; at 8^3
+    E = 1 (512 // (4 * 132) = 0), a plane 8 + 4 words: 16 + 4 (72 + 19 * 12
+    + 825) = 4,516 bytes, 512 one-warp blocks; at 24^3 E = 4, planes of
+    32 + 4: 16 + 4 (72 + 19 * 36 + 4 * 825) = 16,240, 3,456 blocks.
+    (7, 7) f32 (block8x8, PCV = QCV = 8): A = B = 9 * 49 * 7 = 3,087, B/D
+    224, a plane 344 + 4: 16 + 4 (224 + 19 * 348 + 6,174) = 52,056; 343
+    points in two passes of 172, rounded up to 192 threads. (3, 2) f32
+    (warp3x2: PCV = QCV = 4): A = B = 162, B/D 40: 16 + 4 (40 + 228 + 324)
+    = 2,384; (2, 2): A = 108, B = 72, B/D 32: 16 + 4 (32 + 228 + 180) =
+    1,776, in f64 (PCV = 4, QCV = 2 doubles; planes of 8 + 2) 16 + 8 (24 +
+    190 + 180) = 3,168. Above P, Q = 8 the smem body: B and D (2 Q P
+    words), per element max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3) words,
+    one element once Q^3 >= 256: (10, 10) f32 4 (200 + 18,000) = 72,800
+    bytes."""
+    g = fused_apply.generic_plan(P, Q, dtype, nelem)
+    assert (g.body, g.elems, g.threads, g.smem) == (body, elems, threads,
+                                                    smem)
+    assert g.tiles == -(-nelem // elems)
+    assert g.path == ("generic_smem" if body == "smem" else "generic")
     fused_apply.require_fits("hyperFS", P, Q, dtype)
+    if body != "smem":
+        # a residual stages qdata's 10 planes alone
+        stride = g.smem - fused_apply.generic_plan(P, Q, dtype, nelem,
+                                                   planes=10).smem
+        assert stride == 9 * (-(-elems * Q ** 3 * dtype.itemsize // 16) * 16
+                              + 16)
+    # on a card of one SM every warp-tile body takes its full tile: 32 //
+    # Q^3 elements (one from Q = 3) within 64 KB; (5, 2) f32: 4
+    assert fused_apply.generic_plan(5, 2, torch.float32, 13_824, sms=1) \
+        .elems == 4
 
 
 @pytest.mark.parametrize("P,Q,dtype,smem", [

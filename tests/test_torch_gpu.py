@@ -211,6 +211,8 @@ def test_launch_counts_and_refusals(cuda):
     assert fa.COUNTS.by_pq == {("residual", 3, 3): 1, ("jacobian", 3, 3): 2}
     assert fa.COUNTS.by_physics == {("hyperFS", "residual", 3, 3): 1,
                                     ("hyperFS", "jacobian", 3, 3): 2}
+    assert fa.COUNTS.by_shape == {("hyperFS", "residual", 3, 3, 27): 1,
+                                  ("hyperFS", "jacobian", 3, 3, 27): 2}
     # 27 elements of 27 float64 points: no plane a multiple of 16 bytes
     assert fa.COUNTS.by_path == {("residual", "async"): 1,
                                  ("jacobian", "async"): 2}
@@ -241,6 +243,14 @@ GENERIC_CASES = [
       for physics in ("hyperFS", "linElas")),
     ((1, 1, 1), 9, "box", 10, "hyperSS"),
     ((1, 1, 1), 9, "box", 10, "hyperFSIncomp"),
+    # one element; tiles of two elements with a ragged last one (1,331 //
+    # (4 x 132) warp tiles, 343 // 132 block tiles)
+    ((1, 1, 1), 4, "box", 2, "hyperFSIncomp-pressure"),
+    ((1, 1, 1), 6, "box", 7, "hyperFS"),
+    ((11, 11, 11), 4, "box", 2, "hyperFSIncomp-pressure"),
+    ((11, 11, 11), 2, "box", 2, "hyperFSIncomp-pressure"),
+    ((11, 11, 11), 6, "box", 1, "hyperFSIncomp-pressure"),
+    ((7, 7, 7), 2, "box", 4, "hyperFSIncomp-pressure"),
 ]
 
 
@@ -249,26 +259,48 @@ def test_generic_matches_plain(cuda, faces, degree, kind, Q, physics):
     """The generic tile (every (physics, P, Q) without a template
     instance) against the plain version at the tolerances of
     test_kernel_matches_plain: the pressure term at Q = 2, 3 (P > Q and
-    P <= Q), hyperFS and linElas at Q = 7, 8, float64 and float32 at
-    (10, 10). Its plan is generic_plan's, and its launches are counted
-    under "generic"."""
+    P <= Q) and 4, hyperFS and linElas at Q = 7, 8, float64 and float32 at
+    (10, 10) (the shared-memory body); meshes with fewer elements than the
+    card has SMs, one element, and tiles of two with a ragged last one.
+    Its plan, in both modes, is generic_plan's on the card's SM count, and
+    its launches are counted under the plan's path."""
     mesh = box_mesh(faces) if kind == "box" else scrambled_box_mesh(faces, 4)
     f = OperatorFactory(build_fespace(mesh, degree), dtype=torch.float64,
                         device=cuda, q1d=Q)
-    assert fa.is_generic(physics, f.basis.P, Q)
+    P = f.basis.P
+    assert fa.is_generic(physics, P, Q)
     rng = np.random.default_rng(degree)
     u, v = (torch.as_tensor(rng.standard_normal((3, f.space.num_nodes))
                             * 3e-3 / faces[0], device=cuda) for _ in range(2))
     q = f.compute_qdata()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pw = fa.pointwise(physics)
     for dtype in (torch.float64, torch.float32):
-        p = fa.plan(False, q.to(dtype), f.basis, None, physics)
-        assert p.path == "generic" and p.threads == fa.GENERIC_THREADS
-        assert (p.elems, p.smem) == fa.generic_plan(f.basis.P, Q, dtype)
+        qd = q.to(dtype)
+        st = torch.zeros((9, f.nelem, f.Q3), dtype=dtype, device=cuda)
+        for jac in (False, True):
+            p = fa.plan(jac, qd, f.basis, st if jac else None, physics)
+            g = fa.generic_plan(P, Q, dtype, f.nelem, sms,
+                                19 if jac and pw.stash else 10)
+            assert (p.path, p.body, p.elems, p.threads, p.smem, p.tiles) \
+                == (g.path, g.body, g.elems, g.threads, g.smem, g.tiles)
+            assert (p.copy is None) == (g.path == "generic_smem")
+    path = fa.generic_plan(P, Q, torch.float64, f.nelem, sms).path
     fa.COUNTS.reset()
     _check_physics(f, q, u, v, physics, cuda)
     torch.cuda.synchronize()
-    assert fa.COUNTS.by_path == {("residual", "generic"): 2,
-                                 ("jacobian", "generic"): 2}
+    assert fa.COUNTS.by_path == {("residual", path): 2,
+                                 ("jacobian", path): 2}
+
+
+def test_factory_defaults_to_cuda_in_float32(cuda):
+    """OperatorFactory without a device or a dtype builds on CUDA in
+    float32 (device.default_dtype), as ElasticityProblem does there."""
+    f = OperatorFactory(build_fespace(box_mesh((2, 2, 2)), 2))
+    assert f.device.type == "cuda"
+    assert f.dtype == torch.float32
+    assert f.basis.B.dtype == torch.float32
+    assert f.compute_qdata().dtype == torch.float32
 
 
 def test_generic_configurations_construct(cuda):

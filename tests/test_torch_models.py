@@ -33,7 +33,7 @@ def factories(kind, n, degree):
     jm, tm = mesh_pair(kind, n)
     jf = JFactory([jbuild(jm, degree)], dtype=jnp.float64, use_pallas=False,
                   use_spectral=False)
-    tf = TFactory(tbuild(tm, degree), dtype=torch.float64)
+    tf = TFactory(tbuild(tm, degree), dtype=torch.float64, device="cpu")
     return jf, tf
 
 

@@ -122,7 +122,8 @@ def _factories(kind, n=2):
     jm, tm = mesh_pair(kind, n)
     jf = JFactory([jbuild(jm, d) for d in DEGREES], dtype=jnp.float64,
                   use_pallas=False, use_spectral=False)
-    tf = TFactory([tbuild(tm, d) for d in DEGREES], dtype=torch.float64)
+    tf = TFactory([tbuild(tm, d) for d in DEGREES], dtype=torch.float64,
+                  device="cpu")
     return jf, tf
 
 
