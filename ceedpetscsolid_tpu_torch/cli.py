@@ -17,9 +17,10 @@ Runs on CUDA (float32) and raises when no CUDA device is present; the CPU
 CEEDPETSCSOLID_TORCH_DEVICE=cpu (the counterpart of the JAX CLI honouring
 JAX_PLATFORMS=cpu). -mesh <file> reads an unstructured Exodus-II hex
 mesh (HEX8 or HEX27, its side sets the face sets -bc_clamp names) and
-reorders it for locality in place of the box. Options the port does not
-implement yet (-view_soln, -view_final_soln) raise NotImplementedError;
-unknown options are reported.
+reorders it for locality in place of the box. -view_soln writes each
+increment's displacement to solution-NNN.vtu in the working directory, and
+it or -view_final_soln writes solution-final.vtu with the nodal
+diagnostics (post/vtu.py). Unknown options are reported.
 """
 
 from __future__ import annotations
@@ -88,11 +89,6 @@ def build_config(opts: dict):
             return conv(opts[key])
         return default
 
-    for key in ("view_soln", "view_final_soln"):
-        if get(key, _bool, False):
-            raise NotImplementedError(
-                f"-{key}: diagnostics and VTU output are not ported to "
-                "ceedpetscsolid_tpu_torch yet")
     bc_clamp = get("bc_clamp", _ints, ())
     translate, rotate = {}, {}
     for face in bc_clamp:
@@ -151,7 +147,9 @@ def build_config(opts: dict):
         raise SystemExit(f"unknown -snes_linesearch_type {ls!r}")
     cfg.newton.linesearch = ls
     cfg.newton.ew = get("snes_ksp_ew", _bool, cfg.newton.ew)
-    viewopts = dict(snes_monitor=get("snes_monitor", _bool, False),
+    viewopts = dict(view_soln=get("view_soln", _bool, False),
+                    view_final_soln=get("view_final_soln", _bool, False),
+                    snes_monitor=get("snes_monitor", _bool, False),
                     snes_view=get("snes_view", _bool, False),
                     log_view=get("log_view", _bool, False))
     known.update({"ceed", "ceed_fine", "memtype"})   # libCEED resource strings
@@ -180,6 +178,7 @@ def main(argv=None):
         cfg.ksp_rtol = 1e-10 if f64 else 1e-6
         if not f64:
             cfg.newton.rtol = 1e-6
+    from .post.vtu import write_vtu
     from .problem import ElasticityProblem
 
     prob = ElasticityProblem(cfg)
@@ -193,8 +192,19 @@ def main(argv=None):
             energy = prob.strain_energy(u_bc)
             print(f"  SNES iters {res.iters} rnorm {res.rnorm:.6e} "
                   f"energy {energy:.9e}")
+        if viewopts["view_soln"]:
+            # per-increment solution output (misc.c:188-212); a retried
+            # sub-step overwrites its increment's file
+            u_out = prob.insert_bc(res.u, prob.bc_values(load))
+            write_vtu(f"solution-{inc:03d}.vtu", prob.fine_space,
+                      u_out.detach().cpu().numpy())
 
     info = prob.solve(monitor=monitor)
+
+    if viewopts["view_soln"] or viewopts["view_final_soln"]:
+        diag = prob.diagnostics(info.u)
+        write_vtu("solution-final.vtu", prob.fine_space,
+                  info.u.detach().cpu().numpy(), diag.cpu().numpy())
 
     test_mode = cfg.test_mode
     if not test_mode:
@@ -216,8 +226,8 @@ def _print_solver_view(cfg, prob):
     """-snes_view analog: echo the solver tree (the PC/PCMG configuration
     echo of elasticity.c:716-748)."""
     print("SNES Object: newton")
-    print(f"  line search: {cfg.newton.linesearch}"
-          + (" (1 secant step)" if cfg.newton.linesearch == "cp" else ""))
+    print(f"  line search: {cfg.newton.linesearch} "
+          f"(max {cfg.newton.ls_max_it} secant steps)")
     print(f"  rtol {cfg.newton.rtol:g} atol {cfg.newton.atol:g} "
           f"max_it {cfg.newton.max_it}")
     print("  KSP Object: (outer_) cg, natural norm")

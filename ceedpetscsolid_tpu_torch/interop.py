@@ -15,6 +15,12 @@ tensors, so both packages can compute from the same state.
                                                  as AMGPreconditioner.setup
                                                  takes it
 
+A checkpoint of the JAX package's load continuation (the state u, the
+load it converged at, and the largest accepted final residual norm, as
+its scripts/usolve_ckpt.py saves them) resumes in the port as
+`ElasticityProblem.solve(u0=u_from_jax(u), start_load=load,
+floor_atol0=floor)`.
+
 Nothing here imports JAX: callers convert with np.asarray first.
 """
 

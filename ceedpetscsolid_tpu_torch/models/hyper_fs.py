@@ -126,3 +126,19 @@ def energy_qf(du_ref, qdata, phys: Physics):
     trE2 = mat_trace(E2)
     return (phys.lam * logj * logj / 2 - phys.mu * logj
             + phys.mu * trE2 / 2) * wdetJ
+
+
+def diagnostic_qf(u, du_ref, qdata, phys: Physics):
+    """(8, *batch) planes: ux, uy, uz, pressure -lambda log J, tr(E),
+    E:E, J = sqrt(det C) and the strain energy density (hyperFS.h:559-661),
+    with E = E2 / 2. u: (3, *batch)."""
+    _, dXdx = unpack_qdata(qdata)
+    gradu = ref_to_phys_grad(Mat3.from_array(du_ref), dXdx)
+    E2 = _green_lagrange_2E(gradu)
+    detC_m1 = _det_cm1(E2)
+    logj = log1p_series_shifted(detC_m1) / 2.0
+    trE2 = mat_trace(E2)
+    energy = phys.lam * logj * logj / 2 - phys.mu * logj + phys.mu * trE2 / 2
+    return torch.stack([u[0], u[1], u[2], -phys.lam * logj, trE2 / 2,
+                        mat_ddot(E2, E2) / 4, torch.sqrt(detC_m1 + 1),
+                        energy])

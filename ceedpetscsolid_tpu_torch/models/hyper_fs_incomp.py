@@ -29,6 +29,7 @@ from .base import (
     weight_test_grad,
 )
 from .hyper_fs import _det_cm1, _green_lagrange_2E, _sym_inv
+from .hyper_fs import diagnostic_qf as _fs_diagnostic_qf
 from .hyper_fs import energy_qf as _fs_energy_qf
 
 name = "hyperFSIncomp"
@@ -118,3 +119,4 @@ def pressure_jacobian_qf(ddu_ref, qdata, stash: Mat3, phys: Physics):
 
 
 energy_qf = _fs_energy_qf           # hyperFSIncomp.h:767-859 == hyperFS form
+diagnostic_qf = _fs_diagnostic_qf   # src/setuplibceed.c:93

@@ -212,6 +212,47 @@ class OperatorFactory:
 
         return apply
 
+    def make_diagnostic(self, diagnostic_qf: Callable, phys) -> Callable:
+        """(u (3, nnodes), qd_coll, mult) -> (nnodes, 8) float64 nodal
+        diagnostics, averaged over the elements that share each node.
+
+        A collocation P -> P Gauss-Lobatto basis evaluates the model's
+        diagnostic_qf at the fine space's own nodes
+        (src/setuplibceed.c:347); the element values are summed into the
+        nodes and divided by their multiplicity (src/misc.c:258-291).
+        (qd_coll, mult) come from diagnostic_setup. Evaluated in float64
+        whatever the working dtype, for make_energy's reason: the energy
+        density and tr(E^2) columns cancel at small strain as the energy
+        does, and a float32 evaluation would write rounding noise."""
+        f64 = torch.float64
+        restr = self.restr
+        P = self.space.degree + 1
+        coll = Basis3D.create(P, P, "gauss_lobatto", f64, self.device)
+
+        def apply(u, qd_coll, mult):
+            ue = restr.gather(u.to(f64))            # values at the GLL nodes
+            diag = diagnostic_qf(ue, coll.apply_grad(ue), qd_coll, phys)
+            return (restr.scatter_add(diag) / mult).T   # (nnodes, 8)
+
+        return apply
+
+    def diagnostic_setup(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(qd_coll (10, nelem, P3), mult (1, nnodes)) for make_diagnostic,
+        float64: the geometry at the fine space's Gauss-Lobatto nodes from
+        the trilinear vertex basis (src/setuplibceed.c:347), its weights
+        ones (the diagnostics use no wdetJ), and each node's element
+        count."""
+        f64 = torch.float64
+        restr = self.restr
+        P = self.space.degree + 1
+        cb = Basis3D.create(2, P, "gauss_lobatto", f64, self.device)
+        dxdX = cb.apply_grad(self.coord_restr.gather(self.vertex_coords))
+        qd_coll = geometry.setup_geo(
+            dxdX, torch.ones(P ** 3, dtype=f64, device=self.device))
+        mult = restr.scatter_add(torch.ones((1, restr.nelem, restr.P3),
+                                            dtype=f64, device=self.device))
+        return qd_coll.contiguous(), mult
+
     # ------------------------------------------------------------------
     def make_prolongation(self, coarse_level: int, fine_level: int):
         """(prolong, restrict) between two levels.

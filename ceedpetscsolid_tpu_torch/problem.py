@@ -13,7 +13,11 @@ matvec, every level J.v and the AMG's level-0 matvec go through the fused
 element apply (ops/fused_apply.py), which on a CUDA device is the
 hand-written kernel. hyperFSIncomp is a composite operator: its deviatoric
 mu part at full quadrature plus its pressure part at Q = 1 + qextra points
-a direction, each with its own stash.
+a direction, each with its own stash. The nodal diagnostics
+(`diagnostics`, written to VTU files by post/vtu.py) are evaluated in
+float64 on the problem's device; a solve can stop at a load
+(`Config.stop_at_load`) and resume from a checkpoint
+(`solve(u0=, start_load=, floor_atol0=)`).
 """
 
 from __future__ import annotations
@@ -40,10 +44,6 @@ from .solve.cg import estimate_extreme_eigs, pcg
 from .solve.newton import NewtonOptions, NewtonResult, newton_solve
 from .solve.pmg import MGLevel, make_vcycle
 from .utils.timing import StageLog, sync
-
-# failed-increment retries with a halved load delta (the reference breaks
-# the continuation loop on the first divergence instead)
-SUBSTEP_RETRIES = 4
 
 
 @dataclass
@@ -98,6 +98,13 @@ class Config:
     # applies the fresh Jacobian
     pc_lag: int = 1
     newton: NewtonOptions = field(default_factory=NewtonOptions)
+    # failed-increment retries with a halved load delta (0: the reference's
+    # behaviour, the continuation loop breaks on the first divergence)
+    substep_retries: int = 4
+    # stop the continuation once this load fraction is reached (None: run
+    # every increment); with solve(u0=, start_load=, floor_atol0=) a solve
+    # can be cut at a load and resumed there
+    stop_at_load: float | None = None
     # None: CUDA, raising without one (select_device); dtype None: per
     # default_dtype
     device: torch.device | str | None = None
@@ -281,6 +288,7 @@ class ElasticityProblem:
         self._pc_cache = None
         self.pc_setups = 0          # preconditioner builds in the last solve
         self.cg_exits = {}          # CGResult.reason -> count, last solve
+        self._diagnostic = None     # (apply, qd_coll, mult), built at first use
 
     def _setup_amg(self):
         """Analytic p = 1 element matrices (at the native level-0 quadrature
@@ -529,15 +537,29 @@ class ElasticityProblem:
         return res.x, res.iters
 
     # ------------------------------------------------------------------
-    def solve(self, monitor=None) -> "SolveInfo":
-        """Load-increment continuation loop (elasticity.c:636-673)."""
-        with self.log.stage("SNES Solve"):
-            return self._solve_impl(monitor)
+    def solve(self, monitor=None, u0=None, start_load: float = 0.0,
+              floor_atol0: float = 0.0) -> "SolveInfo":
+        """Load-increment continuation loop (elasticity.c:636-673).
 
-    def _solve_impl(self, monitor) -> "SolveInfo":
+        monitor(inc, load, NewtonResult) is called after every Newton
+        solve, sub-steps and failed ones included. u0 / start_load /
+        floor_atol0 resume the continuation from a checkpoint (a capability
+        the reference lacks): the state u (3, nnodes), which is converted
+        to the problem's dtype and device, the load it converged at, and
+        the largest final rnorm of the increments accepted before it. A
+        caller checkpoints (res.u, load, that maximum) from the monitor;
+        a JAX package checkpoint is (interop.u_from_jax(u), load, floor).
+        """
+        with self.log.stage("SNES Solve"):
+            return self._solve_impl(monitor, u0, start_load, floor_atol0)
+
+    def _solve_impl(self, monitor, u0, start_load, floor_atol0) -> "SolveInfo":
         cfg = self.config
         N = self.fine_space.num_nodes
-        u = torch.zeros((3, N), dtype=self.dtype, device=self.device)
+        if u0 is None:
+            u = torch.zeros((3, N), dtype=self.dtype, device=self.device)
+        else:
+            u = torch.as_tensor(u0).to(device=self.device, dtype=self.dtype)
         total_snes = total_ksp = 0
         rnorm = 0.0
         self._pc_time = 0.0
@@ -548,8 +570,8 @@ class ElasticityProblem:
             self.amg_times = dict.fromkeys(self.amg_times, 0.0)
         t0 = time.perf_counter()
         last = None
-        load_done = 0.0
-        floor_atol = 0.0
+        load_done = float(start_load)
+        floor_atol = float(floor_atol0)
 
         def run_newton(load, u0):
             bc_vals = self.bc_values(load)
@@ -571,6 +593,9 @@ class ElasticityProblem:
 
         for inc in range(1, cfg.num_increments + 1):
             target = inc / cfg.num_increments
+            if cfg.stop_at_load is not None and \
+                    target > cfg.stop_at_load + 1e-12:
+                break
             # adaptive sub-stepping: a failed increment retries from the
             # last converged state with a halved load delta (the reference
             # breaks the continuation instead, elasticity.c:668-672)
@@ -600,7 +625,7 @@ class ElasticityProblem:
                 else:
                     fails += 1
                     delta *= 0.5
-                    if fails > SUBSTEP_RETRIES:
+                    if fails > cfg.substep_retries:
                         break
             if load_done < target - 1e-12:
                 break  # elasticity.c:668-672 (after sub-step retries)
@@ -635,6 +660,20 @@ class ElasticityProblem:
     def strain_energy(self, u: torch.Tensor) -> float:
         """Total strain energy (matops.c:247-296), summed in float64."""
         return float(self._energy_fn(u))
+
+    def diagnostics(self, u: torch.Tensor) -> torch.Tensor:
+        """(nnodes, 8) float64 nodal diagnostic fields (misc.c:217-311) on
+        the problem's device: ux, uy, uz, pressure, volumetric strain,
+        tr(E^2), detJ and the strain energy density (the model's
+        diagnostic_qf). The operator and its geometry are built at the first
+        call (OperatorFactory.make_diagnostic, diagnostic_setup)."""
+        if self._diagnostic is None:
+            self._diagnostic = (
+                self.factory.make_diagnostic(self.model.diagnostic_qf,
+                                             self.phys),
+                *self.factory.diagnostic_setup())
+        apply, qd_coll, mult = self._diagnostic
+        return apply(u, qd_coll, mult)
 
 
 @dataclass

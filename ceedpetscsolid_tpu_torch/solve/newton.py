@@ -2,8 +2,8 @@
 Port of ceedpetscsolid_tpu/solve/newton.py.
 
 The SNES analog (reference elasticity.c:595-601, 636-673): Newton iterations
-with the CP line search (one secant step on g(lambda) = F(x + lambda d) . d,
-the SNESLINESEARCHCP default) or the basic full step, both with
+with the CP line search (secant steps on g(lambda) = F(x + lambda d) . d,
+one by default as in SNESLINESEARCHCP) or the basic full step, both with
 domain-error backtracking, driven by the load-increment continuation loop
 of problem.py. The outer loop runs on the host; residuals, linear solves
 and reductions run on the problem's device.
@@ -30,7 +30,8 @@ class NewtonOptions:
     stol: float = 1e-8
     max_it: int = 50
     divtol: float = 1e4
-    linesearch: str = "cp"      # 'cp' (one secant step) | 'basic'
+    linesearch: str = "cp"      # 'cp' | 'basic'
+    ls_max_it: int = 1          # SNESLineSearchCP default secant steps
     monitor: Callable | None = None
     # a stagnating iterate counts as converged only once it gained
     # stall_rtol relative to entry (f32 floors sit near 1e-6 relative)
@@ -116,26 +117,11 @@ class NewtonPolicy:
         return (False, "max_it")
 
 
-def line_search(residual, u, G, d, cp: bool):
-    """Step length + the next residual and the policy norms.
-
-    cp: one secant step of the critical-point line search on
-    g(l) = G(u + l d) . d from l = 1 (SNESLineSearchCP; reference
-    elasticity.c:595-601), falling back to l = 1 outside (1e-8, 1e2);
-    otherwise the full step. Then domain-error backtracking: a step that
+def _backtrack(residual, u, d, lam):
+    """Domain-error backtracking from the step length lam: a step that
     leaves the model's domain (hyperFS needs J > 0) gives a non-finite
     residual and is halved toward u, up to 12 times. Returns (u_new, G_new,
-    stash_new, rnorm_new, |lam d|, |u_new|) with float norms. This is the
-    JAX version's fused line search (problem.py:457-492) and its basic
-    path (newton.py:223-242); two device syncs on the normal path.
-    """
-    lam = 1.0
-    if cp:
-        G1, _ = residual(u + d)
-        g0, g1 = torch.stack([dot2(G, d), dot2(G1, d)]).tolist()
-        lam = g0 / (g0 - g1) if g0 != g1 else math.nan
-        if not (math.isfinite(lam) and 1e-8 < lam < 1e2):
-            lam = 1.0
+    stash_new, rnorm_new, |lam d|, |u_new|) with float norms."""
     for t in range(13):
         if t:
             lam *= 0.5
@@ -146,6 +132,54 @@ def line_search(residual, u, G, d, cp: bool):
         if math.isfinite(rnorm):
             break
     return u_new, G_new, stash, rnorm, step, unorm
+
+
+def secant_step(residual, u, G, d) -> float:
+    """Step length of the CP line search at its default of one secant step
+    on g(l) = G(u + l d) . d from l = 1 (SNESLineSearchCP; reference
+    elasticity.c:595-601), 1 outside (1e-8, 1e2): the JAX version's fused
+    line search (problem.py:457-492), whose domain backtracking follows in
+    _backtrack; one device sync for both dot products."""
+    G1, _ = residual(u + d)
+    g0, g1 = torch.stack([dot2(G, d), dot2(G1, d)]).tolist()
+    lam = g0 / (g0 - g1) if g0 != g1 else math.nan
+    return lam if math.isfinite(lam) and 1e-8 < lam < 1e2 else 1.0
+
+
+def secant_search(residual, u, G, d, opts: NewtonOptions) -> float:
+    """Step length of the CP line search with opts.ls_max_it secant steps on
+    g(l) = G(u + l d) . d from l = 1, or 1 for the basic line search and
+    for ls_max_it <= 0 (the JAX version's _line_search, newton.py:263-301).
+    A trial step whose g is not finite is halved toward u, up to 12 times
+    (0 when none is finite), and the secant restarts from l = 0; a secant
+    step outside (1e-8, 1e2] gives 1."""
+    if opts.linesearch == "basic" or opts.ls_max_it <= 0:
+        return 1.0
+    g0 = float(dot2(G, d))
+    lam_old, g_old = 0.0, g0
+    lam = 1.0
+    for _ in range(opts.ls_max_it):
+        Gl, _ = residual(u + lam * d)
+        g = float(dot2(Gl, d))
+        if not math.isfinite(g):
+            for _ in range(12):
+                lam *= 0.5
+                Gl, _ = residual(u + lam * d)
+                g = float(dot2(Gl, d))
+                if math.isfinite(g):
+                    break
+            else:
+                return 0.0
+            lam_old, g_old = 0.0, g0
+        denom = g - g_old
+        if denom == 0.0 or not math.isfinite(denom):
+            break
+        lam_new = lam - g * (lam - lam_old) / denom
+        lam_old, g_old = lam, g
+        lam = lam_new
+        if not math.isfinite(lam) or lam <= 1e-8 or lam > 1e2:
+            return 1.0
+    return lam
 
 
 def newton_solve(
@@ -168,6 +202,9 @@ def newton_solve(
         # report divergence so the load loop can sub-step
         return NewtonResult(u, 0, 0, rnorm0, False, "diverged")
 
+    # the JAX version fuses the default line search into one device program
+    # and runs every other one step by step; both paths are ported
+    fused = opts.linesearch == "cp" and opts.ls_max_it == 1
     reason = "max_it"
     converged = False
     it = 0
@@ -179,8 +216,9 @@ def newton_solve(
         else:
             d, ksp_its = linear_solve(u, G, stash)
         lin_total += int(ksp_its)
-        u, G, stash, rnorm_new, step, unorm = line_search(
-            residual, u, G, d, cp=opts.linesearch == "cp")
+        lam = (secant_step(residual, u, G, d) if fused
+               else secant_search(residual, u, G, d, opts))
+        u, G, stash, rnorm_new, step, unorm = _backtrack(residual, u, d, lam)
         if opts.monitor is not None:
             opts.monitor(it, rnorm_new)
         if opts.ew and math.isfinite(rnorm_new) and rnorm > 0:

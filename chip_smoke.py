@@ -111,12 +111,30 @@ Phases, each of which raises on failure:
      against the lattice 16^3 box through the same CLI with its own face
      ids: the same SNES count, energy and u at nodes matched by
      coordinates to 1e-3; both KSP counts printed (the AMG aggregates by
-     ordering).
+     ordering);
+ 17. slice 9's post-processing and continuation control: (a) the nodal
+     diagnostics of phase 11's solution (ElasticityProblem.diagnostics,
+     float64 on the card), every column to 1e-12 of the float64
+     multigrid=none problem's on the same u and columns 0-2 equal to u,
+     their device and call ms beside phase 11's solve seconds, then
+     solution-final.vtu of them in build/chip_smoke/ (write seconds, MB),
+     parsed back with xml.etree: (4 n + 1)^3 points, (4 n)^3 cells and the
+     displacement to the 9 digits written; (b) RESUME, a hyperFS degree-4
+     clamp in four increments on the 8^3 box (p-MG + AMG, float32, Newton
+     rtol 1e-5), unbroken, then cut at load 0.5 (Config.stop_at_load) and
+     resumed in a fresh problem from its monitor's checkpoint: the same
+     SNES count, KSP
+     within 10%, u to 1e-4, energy to 1e-5, no indefinite CG exit; (c) the
+     same clamp with NewtonOptions.ls_max_it 2 (the step-by-step secant
+     line search), float32 against its float64 twin at phase 12's
+     tolerances; (d) the reference smoke flags with -view_soln
+     -view_final_soln through cli.main in build/chip_smoke/cli/: every
+     increment's file and the final one, parsed back.
 In phases 10-13 CG may exit on p.Ap <= 0 (the sign of an AMG cycle that
 stopped being SPD in float32) no more often than in the float64 twin
 (phase 12's clamp solves, whose tangents are themselves indefinite at the
 first Newton steps), and not at all elsewhere. Kernel launch counters are
-set to 0 just before each main path (phases 6-13) and read just after,
+set to 0 just before each main path (phases 6-17) and read just after,
 the fused apply's also per copy path. Then one JSON line of per-kernel
 results (each with its bound from this run's shapes, `bound_by`, and
 `library_ms`: bare `tab[idx]` for the probes, none for the fused apply,
@@ -133,10 +151,12 @@ import importlib.util
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
+import xml.etree.ElementTree as ET
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -209,6 +229,18 @@ EXODUS_BOX = 16                      # phase 16
 EXODUS_FLAGS = ["-problem", "hyperFS", "-degree", "4", "-nu", "0.3", "-E",
                 "1", "-num_steps", "1"]
 EXODUS_SHIFT = "0.01,0,0"
+# phase 17(b, c): a hyperFS degree-4 clamp on the CLAMP_BOX^3 box in four
+# increments, face 5 translated by 10% of the box along x and 5% along z,
+# at Newton rtol 1e-5: on the CPU every increment then takes four Newton
+# steps in float32 and float64 alike, each precision's last residual 10x
+# below the threshold. At the CLI's 1e-6 the float32 increments end at
+# their noise floor (~2e-6 of the entry residual) by stagnation, in more
+# steps than float64's, which the resume's and the twins' counts would
+# then measure instead of what they check.
+RESUME = dict(problem="hyperFS", degree=4, nu=0.3, E=1.0, forcing="none",
+              bc_clamp=(6, 5), bc_clamp_translate={5: (0.1, 0.0, 0.05)},
+              num_increments=4, multigrid="logarithmic")
+RESUME_RTOL = 1e-5
 CU_SOURCE = "ceedpetscsolid_tpu_torch/csrc/fused_apply.cu"
 PROBE_SOURCE = "ceedpetscsolid_tpu_torch/csrc/gather_probe.cu"
 PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
@@ -433,6 +465,18 @@ def run_cli(flags):
     return (rc, buf.getvalue(), *seen[-1])
 
 
+def read_vtu(path):
+    """(NumberOfPoints, NumberOfCells, {array name: float64 values}) of a
+    VTU file of post/vtu.py, parsed with xml.etree (the points' array is
+    named "Points")."""
+    root = ET.parse(path).getroot()
+    piece = root.find("UnstructuredGrid/Piece")
+    arrays = {e.get("Name", "Points"): np.array(e.text.split(), float)
+              for e in root.iter("DataArray")}
+    return (int(piece.get("NumberOfPoints")), int(piece.get("NumberOfCells")),
+            arrays)
+
+
 def gather_phase(dev, card):
     """Phase 9. The probe entry point as a user runs it, launch counts set
     to 0 just before and read just after; then every kernel against its
@@ -529,8 +573,10 @@ def main():
     from ceedpetscsolid_tpu_torch.mesh.scrambled import scrambled_box_mesh
     from ceedpetscsolid_tpu_torch.models import Physics
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
+    from ceedpetscsolid_tpu_torch.post.vtu import write_vtu
     from ceedpetscsolid_tpu_torch.problem import (
         Config, ElasticityProblem, select_device)
+    from ceedpetscsolid_tpu_torch.solve import newton as newton_mod
     from ceedpetscsolid_tpu_torch.utils.profile_solve import make_problem
     from ceedpetscsolid_tpu_torch.utils.timing import (
         cuda_device_ms as device_ms)
@@ -1015,6 +1061,8 @@ def main():
     check_twin("[11]", SOLVE_BOX, info, err11, en11, f32_tolerances=True,
                du_slack=True, **amg)
     main_counts.append(c11)
+    prob11, info11 = prob, info         # phase 17 post-processes this solve
+    solve11_s = info.solve_time
     del prob, info
     torch.cuda.empty_cache()
 
@@ -1033,17 +1081,20 @@ def main():
     main_counts.append(c12)
     del prob, info
     torch.cuda.empty_cache()
-    def clamp_pair(tag, name, kw, keys, counts=True):
+    def clamp_pair(tag, name, kw, keys, counts=True, newton=()):
         """A clamp solve on the CLAMP_BOX^3 box, float32 against its
         float64 twin: converged, energy to 1e-5, u to 1e-3, CG's indefinite
         exits no more than the twin's and, with `counts`, the same SNES
         count and KSP within 10%; the float32 solve's launches, counted
-        from 0, must cover `keys`."""
+        from 0, must cover `keys`. `newton`: NewtonOptions fields set in
+        both solves."""
         runs = {}
         for dtype in (torch.float32, torch.float64):
             cfg = Config(**kw, box_faces=(CLAMP_BOX,) * 3, device=dev,
                          dtype=dtype, ksp_rtol=1e-6)
             cfg.newton.rtol = 1e-6      # the CLI's float32 policy, both
+            for k_, v_ in newton:
+                setattr(cfg.newton, k_, v_)
             p = ElasticityProblem(cfg)
             fa.COUNTS.reset()
             i = p.solve()
@@ -1183,6 +1234,162 @@ def main():
     main_counts.append(c16)
     del prob_e, prob_b, info_e, info_b
     torch.cuda.empty_cache()
+
+    # ---- 17. post-processing, resume, ls_max_it, the CLI's VTU views -------
+    t17 = time.perf_counter()
+    post_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    post_dir.mkdir(parents=True, exist_ok=True)
+    # (a) the diagnostics of phase 11's solution, and its VTU file
+    u11 = info11.u
+    t0 = time.perf_counter()
+    diag = prob11.diagnostics(u11)              # builds the operator first
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    diag_ms = device_ms(lambda: prob11.diagnostics(u11), reps=5, inner=3)
+    diag_call_ms = time_ms(lambda: prob11.diagnostics(u11), reps=5)
+    ref = make_problem(SOLVE_BOX, "none", dev, torch.float64).diagnostics(
+        u11.double())
+    col_err = ((diag - ref).abs().amax(dim=0)
+               / ref.abs().amax(dim=0)).tolist()
+    same_u = torch.equal(diag[:, :3], u11.double().T)
+    log(f"[17] diagnostics of phase 11's solution ({info11.dofs} DoF, "
+        f"{diag.shape[0]} nodes, {diag.dtype} on {diag.device}): device "
+        f"{diag_ms:.4f} ms, call {diag_call_ms:.4f} ms, first call with its "
+        f"setup {first_s:.3f} s; phase 11's solve {solve11_s:.3f} s ({card})")
+    log("    vs a float64 multigrid=none problem's on u.double(): max |diff| "
+        "/ max |ref| per column " + ", ".join(f"{e:.1e}" for e in col_err)
+        + f"; columns 0-2 equal u: {same_u}")
+    if not (diag.dtype == torch.float64
+            and diag.shape == (prob11.fine_space.num_nodes, 8)
+            and max(col_err) <= 1e-12 and same_u):
+        raise AssertionError("[17] the diagnostics disagree with the float64 "
+                             "problem's")
+    vtu = post_dir / "solution-final.vtu"
+    t0 = time.perf_counter()
+    write_vtu(str(vtu), prob11.fine_space, u11.cpu().numpy(),
+              diag.cpu().numpy())
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    npts, ncells, arrays = read_vtu(vtu)
+    parse_s = time.perf_counter() - t0
+    u_host = u11.double().cpu().numpy().T
+    # .9g keeps 9 significant digits: within half a unit of the ninth
+    disp_ok = bool(np.all(np.abs(arrays["displacement"].reshape(-1, 3)
+                                 - u_host) <= 5.0001e-9 * np.abs(u_host)))
+    n1 = 4 * SOLVE_BOX
+    log(f"    {vtu.name}: write {write_s:.2f} s (the host copy included), "
+        f"{vtu.stat().st_size / 1e6:.1f} MB; parsed back in {parse_s:.2f} "
+        f"s: {npts} points, {ncells} cells, displacement equal to 9 "
+        f"significant digits: {disp_ok}")
+    if not (npts == (n1 + 1) ** 3 and ncells == n1 ** 3 and disp_ok):
+        raise AssertionError(f"[17] {vtu.name} does not hold the solution")
+    del prob11, info11, u11, diag, ref, arrays
+    torch.cuda.empty_cache()
+
+    # (b) a clamp solve cut at load 0.5 and resumed in a fresh problem
+    def resume_problem(**kw):
+        cfg = Config(**RESUME, box_faces=(CLAMP_BOX,) * 3, device=dev,
+                     dtype=torch.float32, ksp_rtol=1e-6, **kw)
+        cfg.newton.rtol = RESUME_RTOL
+        return ElasticityProblem(cfg)
+
+    ckpt = {"floor": 0.0}
+
+    def checkpoint(inc, load, res):
+        if res.converged:
+            ckpt.update(u=res.u, load=load,
+                        floor=max(ckpt["floor"], res.rnorm))
+
+    fa.COUNTS.reset()
+    p_full = resume_problem()
+    i_full = p_full.solve()
+    p_cut = resume_problem(stop_at_load=0.5)
+    i_cut = p_cut.solve(checkpoint)
+    p_res = resume_problem()
+    i_res = p_res.solve(u0=ckpt["u"], start_load=ckpt["load"],
+                        floor_atol0=ckpt["floor"])
+    c17 = dict(fa.COUNTS.by_physics)
+    w_full, w_res = p_full.strain_energy(i_full.u), p_res.strain_energy(
+        i_res.u)
+    du = float(torch.linalg.norm(i_res.u - i_full.u)
+               / torch.linalg.norm(i_full.u))
+    log(f"    resume: hyperFS p4 {CLAMP_BOX}^3 clamp ({i_full.dofs} DoF, face "
+        f"5 translated by {RESUME['bc_clamp_translate'][5]}), 4 increments, "
+        f"p-MG {p_full.level_degrees} + AMG, float32: unbroken SNES "
+        f"{i_full.snes_iters}, KSP {i_full.ksp_iters}; cut at load "
+        f"{ckpt['load']} SNES {i_cut.snes_iters}, KSP {i_cut.ksp_iters}, "
+        f"resumed SNES {i_res.snes_iters}, KSP {i_res.ksp_iters}; energy "
+        f"{w_res:.10e} / {w_full:.10e}, |u_res - u|/|u| {du:.3e}; solves "
+        f"{i_full.solve_time:.3f} / {i_cut.solve_time:.3f} + "
+        f"{i_res.solve_time:.3f} s; Newton rtol {RESUME_RTOL} ({card})")
+    for p_, i_ in ((p_full, i_full), (p_cut, i_cut), (p_res, i_res)):
+        amg_report(p_, i_)
+    if not (ckpt["load"] == 0.5 and i_full.converged and i_cut.converged
+            and i_res.converged
+            and i_cut.snes_iters + i_res.snes_iters == i_full.snes_iters
+            and abs(i_cut.ksp_iters + i_res.ksp_iters - i_full.ksp_iters)
+            <= 0.1 * i_full.ksp_iters
+            and du <= 1e-4 and abs(w_res - w_full) <= 1e-5 * abs(w_full)):
+        raise AssertionError("[17] the resumed solve disagrees with the "
+                             "unbroken one")
+    hyper_keys = [("hyperFS", "residual", 5, 5), ("hyperFS", "jacobian", 5, 5),
+                  ("hyperFS", "jacobian", 3, 3), ("hyperFS", "jacobian", 2, 2)]
+    need("[17]", c17, hyper_keys)
+    main_counts.append(c17)
+    del p_full, p_cut, p_res, i_full, i_cut, i_res, ckpt
+    torch.cuda.empty_cache()
+
+    # (c) the same clamp with two secant steps a line search, step by step
+    searches = [0]
+    secant = newton_mod.secant_search
+
+    def counted(*a, **kw):
+        searches[0] += 1
+        return secant(*a, **kw)
+
+    newton_mod.secant_search = counted
+    c17c = clamp_pair("[17]", "hyperFS", RESUME, hyper_keys,
+                      newton=[("rtol", RESUME_RTOL), ("ls_max_it", 2)])
+    newton_mod.secant_search = secant
+    log(f"    ls_max_it 2: {searches[0]} secant searches in the two solves")
+    if not searches[0]:
+        raise AssertionError("[17] ls_max_it 2 ran no secant search")
+    main_counts.append(c17c)
+
+    # (d) the reference smoke flags with -view_soln -view_final_soln
+    cli_dir = post_dir / "cli"
+    cli_dir.mkdir(exist_ok=True)
+    for f in cli_dir.glob("*.vtu"):
+        f.unlink()
+    cwd = Path.cwd()
+    os.chdir(cli_dir)
+    fa.COUNTS.reset()
+    try:
+        rc, out, prob, info = run_cli(REFERENCE_SMOKE
+                                      + ["-view_soln", "-view_final_soln"])
+    finally:
+        os.chdir(cwd)
+    c17d = dict(fa.COUNTS.by_physics)
+    files = sorted(f.name for f in cli_dir.glob("*.vtu"))
+    want = [f"solution-{i:03d}.vtu"
+            for i in range(1, prob.config.num_increments + 1)]
+    want.append("solution-final.vtu")
+    parsed = {f: read_vtu(cli_dir / f) for f in files}
+    log(f"    cli.main({' '.join(REFERENCE_SMOKE)} -view_soln "
+        f"-view_final_soln) -> rc {rc}, output {out!r}, files "
+        + ", ".join(f"{f} ({n} points, {len(a)} arrays)"
+                    for f, (n, _, a) in parsed.items()))
+    if not (rc == 0 and not out and files == want
+            and all(n == prob.fine_space.num_nodes
+                    and a["displacement"].size == 3 * n
+                    for n, _, a in parsed.values())
+            and "strain_energy_density" in parsed["solution-final.vtu"][2]):
+        raise AssertionError("[17] the CLI's VTU files are wrong")
+    need("[17]", c17d, [("linElas", "residual", 4, 4),
+                        ("linElas", "jacobian", 4, 4)])
+    main_counts.append(c17d)
+    del prob, info, parsed
+    log(f"    phase 17 {time.perf_counter() - t17:.1f} s")
 
     def instances(physics, mode, generic=False):
         """'P,Q' -> launches of one physics and mode over the main paths,

@@ -570,3 +570,57 @@ def test_pcgamg_degree1_on_gpu_matches_cpu(cuda):
         box_faces=(6, 6, 6))
     assert ig.ksp_iters <= 15
     assert counts[("linElas", "jacobian", 2, 2)] > ig.ksp_iters
+
+
+@pytest.mark.parametrize("kind", ["box", "scrambled"])
+def test_diagnostics_on_gpu_match_cpu(cuda, kind):
+    """ElasticityProblem.diagnostics on the card (a float32 problem: the
+    diagnostics are float64 all the same) against the CPU float64 problem's
+    on the same u: float64 on the card, every column to 1e-12 of its max
+    |value|, columns 0-2 equal to u to 1e-15 (the node sums may add in
+    another order)."""
+    mesh = (scrambled_box_mesh((3, 3, 3), seed=3) if kind == "scrambled"
+            else None)
+    kw = dict(problem="hyperFS", degree=3, test_mode=True,
+              box_faces=(3, 3, 3), multigrid="none")
+    pg = ElasticityProblem(Config(**kw, device=cuda, dtype=torch.float32),
+                           mesh=mesh)
+    pc = ElasticityProblem(Config(**kw, device="cpu"), mesh=mesh)
+    rng = np.random.default_rng(12)
+    u = torch.as_tensor(rng.normal(size=(3, pc.fine_space.num_nodes)) * 1e-2)
+    dg = pg.diagnostics(u.to(cuda))
+    dc = pc.diagnostics(u)
+    assert dg.dtype == torch.float64 and dg.device.type == "cuda"
+    err = (dg.cpu() - dc).abs().amax(dim=0)
+    assert bool((err <= 1e-12 * dc.abs().amax(dim=0)).all())
+    assert float((dg[:, :3].cpu() - u.T).abs().max()) <= 1e-15 * float(
+        u.abs().max())
+
+
+def test_resume_on_gpu_matches_unbroken(cuda):
+    """A hyperFS clamp on the card (float64, p-MG + AMG, four increments)
+    stopped at load 0.5 and resumed in a fresh problem from the monitor's
+    checkpoint, against the unbroken solve: the same SNES count, KSP within
+    10% (the resumed AMG aggregates at another Jacobian), u to 1e-8."""
+    kw = dict(problem="hyperFS", degree=2, nu=0.3, E=1.0, box_faces=(3, 3, 3),
+              bc_clamp=(6, 5), bc_clamp_translate={5: (0.2, 0.0, 0.1)},
+              num_increments=4, device=cuda, dtype=torch.float64)
+    full = ElasticityProblem(Config(**kw)).solve()
+    ck = {"floor": 0.0}
+
+    def monitor(inc, load, res):
+        if res.converged:
+            ck.update(u=res.u, load=load,
+                      floor=max(ck["floor"], float(res.rnorm)))
+
+    first = ElasticityProblem(Config(**kw, stop_at_load=0.5)).solve(monitor)
+    rest = ElasticityProblem(Config(**kw)).solve(
+        u0=ck["u"].cpu().numpy(), start_load=ck["load"],
+        floor_atol0=ck["floor"])
+    assert ck["load"] == 0.5 and rest.u.device.type == "cuda"
+    assert full.converged and rest.converged
+    assert first.snes_iters + rest.snes_iters == full.snes_iters
+    assert abs(first.ksp_iters + rest.ksp_iters - full.ksp_iters) <= \
+        0.1 * full.ksp_iters
+    assert float(torch.linalg.norm(rest.u - full.u)
+                 / torch.linalg.norm(full.u)) <= 1e-8

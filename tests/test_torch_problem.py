@@ -128,19 +128,6 @@ def test_cli_smoke_matches_jax(capsys, monkeypatch):
     assert _l2(out_t) == pytest.approx(_l2(out_j), rel=1e-5)
 
 
-# (-mesh is ported: test_torch_exodus.py::test_cli_mesh_matches_jax runs it)
-@pytest.mark.parametrize("flags,option", [
-    (["-view_soln", "-multigrid", "none"], "-view_soln"),
-    (["-view_final_soln"], "-view_final_soln"),
-])
-def test_cli_refuses_unported_options(flags, option, monkeypatch):
-    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
-    base = ["-problem", "hyperFS", "-test", "-nu", "0.3", "-E", "1"]
-    # later flags override earlier ones (dict), so `flags` wins
-    with pytest.raises(NotImplementedError, match=re.escape(option)):
-        tcli.main(base + flags)
-
-
 def test_device_is_cuda_unless_the_cpu_is_asked_for(monkeypatch, capsys):
     """Without a CUDA device and without an ask for the CPU, the problem and
     the CLI raise instead of running on the CPU; asked for the CPU
