@@ -14,6 +14,9 @@ tensors, so both packages can compute from the same state.
     a CSR matrix (indptr, indices, data, n)   -> scipy.sparse.csr_matrix,
                                                  as AMGPreconditioner.setup
                                                  takes it
+    the distributed driver's sharded owned array (ndev, c, n_owned_max)
+                                              -> one rank's (c, n_owned_max)
+                                                 block, and back
 
 A checkpoint of the JAX package's load continuation (the state u, the
 load it converged at, and the largest accepted final residual norm, as
@@ -111,3 +114,23 @@ def csr_from_jax(indptr, indices, data, n: int) -> sp.csr_matrix:
     return sp.csr_matrix((np.array(data, np.float64),
                           np.array(indices, np.int32),
                           np.array(indptr, np.int64)), shape=(n, n))
+
+
+def owned_from_jax(arr, rank: int, dtype=torch.float64,
+                   device="cpu") -> torch.Tensor:
+    """Rank `rank`'s (c, n_owned_max) block of the JAX package's sharded
+    owned array (ndev, c, n_owned_max), the output of its
+    DistributedProblem.to_owned. Both packages partition with the same
+    partition_space, so the blocks line up slot for slot."""
+    a = np.asarray(arr)
+    if a.ndim != 3 or not 0 <= rank < a.shape[0]:
+        raise ValueError(f"owned array must be (ndev, c, n_owned_max) with "
+                         f"rank < ndev, got {a.shape} and rank {rank}")
+    return _tensor(a[rank], dtype, device)
+
+
+def owned_to_jax(blocks) -> np.ndarray:
+    """Every rank's (c, n_owned_max) block, in rank order -> the JAX
+    package's (ndev, c, n_owned_max) array (numpy)."""
+    return np.stack([b.detach().cpu().numpy() if isinstance(b, torch.Tensor)
+                     else np.asarray(b) for b in blocks])

@@ -286,31 +286,42 @@ class OperatorFactory:
     def make_diagonal(self, jacobian_qf: Callable, phys, level: int = -1,
                       native: bool = False) -> Callable:
         """Assembled operator diagonal at `level` (CeedOperatorLinear-
-        AssembleDiagonal analog, src/matops.c:206-244):
-        diag[c,e,p] = sum_q sum_{d1,d2} Bg[d1,q,p] K[c,d1,c,d2] Bg[d2,q,p]
-        where K is the pointwise Jacobian tensor; K's (c, :, c, :) slices
-        come from 9 unit-gradient applications of the qfunction.
+        AssembleDiagonal analog, src/matops.c:206-244): the element
+        diagonals of `element_diagonal`, owner-summed.
         native=True builds it at the level's own quadrature (qdata and stash
         arguments must then be the native ones).
         """
         lvl = self.levels[level]
-        basis, restr = (lvl.nat_basis if native else lvl.basis), lvl.restr
-        # BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]
-        BB = torch.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
+        elem = element_diagonal(jacobian_qf, phys,
+                                lvl.nat_basis if native else lvl.basis)
 
         def apply(qdata, stash):
-            nelem, Q3 = qdata.shape[1], qdata.shape[2]
-            st = None if stash is None else Mat3(stash.unbind(0))
-            diag_e = torch.zeros((3, nelem, basis.P3), dtype=qdata.dtype,
-                                 device=qdata.device)
-            du = torch.zeros((3, 3, nelem, Q3), dtype=qdata.dtype,
-                             device=qdata.device)
-            for c2 in range(3):
-                for d2 in range(3):
-                    du[c2, d2] = 1.0
-                    Krow = jacobian_qf(du, qdata, st, phys)[c2]   # (3, e, q)
-                    du[c2, d2] = 0.0
-                    diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2], Krow)
-            return restr.scatter_add(diag_e)
+            return lvl.restr.scatter_add(elem(qdata, stash))
 
         return apply
+
+
+def element_diagonal(jacobian_qf: Callable, phys, basis: Basis3D) -> Callable:
+    """(qdata, stash) -> (3, nelem, P3) element diagonals of an operator:
+    diag[c,e,p] = sum_q sum_{d1,d2} Bg[d1,q,p] K[c,d1,c,d2] Bg[d2,q,p]
+    where K is the pointwise Jacobian tensor; K's (c, :, c, :) slices
+    come from 9 unit-gradient applications of the qfunction."""
+    # BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]
+    BB = torch.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
+
+    def fn(qdata, stash):
+        nelem, Q3 = qdata.shape[1], qdata.shape[2]
+        st = None if stash is None else Mat3(stash.unbind(0))
+        diag_e = torch.zeros((3, nelem, basis.P3), dtype=qdata.dtype,
+                             device=qdata.device)
+        du = torch.zeros((3, 3, nelem, Q3), dtype=qdata.dtype,
+                         device=qdata.device)
+        for c2 in range(3):
+            for d2 in range(3):
+                du[c2, d2] = 1.0
+                Krow = jacobian_qf(du, qdata, st, phys)[c2]   # (3, e, q)
+                du[c2, d2] = 0.0
+                diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2], Krow)
+        return diag_e
+
+    return fn

@@ -39,6 +39,7 @@ def pcg(
     maxiter: int = 10_000,
     stall_its: int = 60,
     monitor: bool = False,
+    dot: Callable = dot2,
 ) -> CGResult:
     """Solve A x = b with preconditioner M_inv (defaults to identity).
 
@@ -47,6 +48,8 @@ def pcg(
     attainable-accuracy stagnation guard of the JAX version).
     A non-positive p.Ap (KSP_DIVERGED_INDEFINITE_MAT analog) ends the solve
     with converged=False, keeping the iterate of the last good step.
+    dot: the inner product, a 0-dim float64 tensor (the distributed driver
+    passes its all-reduced dot).
     """
     if M_inv is None:
         M_inv = lambda r: r  # noqa: E731
@@ -57,7 +60,7 @@ def pcg(
         x = x0
         r = b - A(x)
     z = M_inv(r)
-    rz = dot2(r, z)
+    rz = dot(r, z)
     norm0 = math.sqrt(abs(float(rz)))
     tol = max(rtol * norm0, atol)
 
@@ -66,13 +69,13 @@ def pcg(
     rn = norm0
     while ok and rn > tol and it < maxiter and since < stall_its:
         Ap = A(p)
-        pAp = dot2(p, Ap)
+        pAp = dot(p, Ap)
         good_t = pAp > 0
         alpha = torch.where(good_t, rz / pAp, torch.zeros_like(pAp))
         x = x + alpha * p
         r = r - alpha * Ap
         z = M_inv(r)
-        rz_new = dot2(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         pAp_v, rz_v = torch.stack([pAp, rz_new]).tolist()   # the one sync
@@ -151,6 +154,8 @@ def estimate_extreme_eigs(
     dtype,
     iters: int = 10,
     transform=(0.0, 0.1, 0.0, 1.1),
+    r0: torch.Tensor | None = None,
+    dot: Callable = dot2,
 ) -> tuple[float, float]:
     """Estimate eigenvalue bounds of D^{-1}A by a few CG/Lanczos steps with a
     noisy right-hand side, then apply the PETSc-style transform
@@ -160,19 +165,22 @@ def estimate_extreme_eigs(
     The CG coefficients stay on the device until the loop ends; one read
     brings them to the host, where the Lanczos tridiagonal's eigenvalues
     are taken in float64. Returns (lam_min_bound, lam_max_bound) as floats.
+    r0: the start vector (default eig_start_vector's); dot: the inner
+    product, a 0-dim float64 tensor (the distributed driver passes its
+    probe vector and its all-reduced dot).
     """
     a, bb, c, d = transform
-    r = eig_start_vector(shape, dtype, diag_inv.device)
+    r = eig_start_vector(shape, dtype, diag_inv.device) if r0 is None else r0
     z = diag_inv * r
     p = z
-    rz = dot2(r, z)
+    rz = dot(r, z)
     coefs = []
     for _ in range(iters):
         Ap = A(p)
-        alpha = rz / dot2(p, Ap)
+        alpha = rz / dot(p, Ap)
         r = r - alpha.to(dtype) * Ap
         z = diag_inv * r
-        rz_new = dot2(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         coefs += [alpha, beta]
         p = z + beta.to(dtype) * p

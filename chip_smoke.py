@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (ceedpetscsolid_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase18 d     # phase 18's parts alone
 
 Phases, each of which raises on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -129,13 +130,31 @@ Phases, each of which raises on failure:
      line search), float32 against its float64 twin at phase 12's
      tolerances; (d) the reference smoke flags with -view_soln
      -view_final_soln through cli.main in build/chip_smoke/cli/: every
-     increment's file and the final one, parsed back.
+     increment's file and the final one, parsed back;
+ 18. the distributed driver (parallel/: DistributedProblem on
+     torch.distributed, the fused kernel on every rank's interior and
+     boundary batches): phase 11's problem at the fine level quadrature
+     (the JAX package's distributed p-MG integrates every level there),
+     float32, Newton rtol 1e-5 (DIST_RTOL), against the serial solve of the
+     same configuration: (a) one NCCL rank in this process, (b) four gloo
+     ranks on this card (parallel/launch.py): |G| at u = 0 to 1e-5, SNES
+     equal, KSP at most the serial's + 2, u to 1e-5; halo statistics,
+     partition_space's seconds, wall per Newton step and the share of it
+     in the exchanges (Comm.seconds: the host's clock under gloo, the
+     device's under NCCL), every rank's launches by path (each rank's launches
+     equal to its batch applies: none ran the plain version); (c) one
+     Newton step, float64, of hyperFSIncomp degree 2 on 3^3 and of hyperFS
+     degree 2 on phase 16's HEX27 file (Config.mesh_file), both p-MG +
+     AMG, on four gloo ranks: entry |G| to 1e-5 of the serial operator's,
+     |G| decreasing; (d) four NCCL ranks, one a card, only where the
+     machine has four cards (otherwise one line says so).
 In phases 10-13 CG may exit on p.Ap <= 0 (the sign of an AMG cycle that
 stopped being SPD in float32) no more often than in the float64 twin
 (phase 12's clamp solves, whose tangents are themselves indefinite at the
 first Newton steps), and not at all elsewhere. Kernel launch counters are
 set to 0 just before each main path (phases 6-17) and read just after,
-the fused apply's also per copy path. Then one JSON line of per-kernel
+the fused apply's also per copy path (phase 18: per job on every rank).
+Then one JSON line of per-kernel
 results (each with its bound from this run's shapes, `bound_by`, and
 `library_ms`: bare `tab[idx]` for the probes, none for the fused apply,
 which no one PyTorch call computes; K6 also carries `matmul_ms`, the
@@ -241,6 +260,17 @@ RESUME = dict(problem="hyperFS", degree=4, nu=0.3, E=1.0, forcing="none",
               bc_clamp=(6, 5), bc_clamp_translate={5: (0.1, 0.0, 0.05)},
               num_increments=4, multigrid="logarithmic")
 RESUME_RTOL = 1e-5
+# phase 18: phase 11's problem at the fine level quadrature, float32 (the
+# CLI's float32 KSP rtol), solved to Newton rtol 1e-5 (DistributedProblem's
+# default 1e-8 is set for float64), serial and distributed alike
+DIST_CONFIG = dict(problem="hyperFS", degree=4, nu=0.3, E=1.0,
+                   test_mode=True, box_faces=(SOLVE_BOX,) * 3,
+                   multigrid="logarithmic", coarse_solve="amg",
+                   level_quadrature="fine", num_increments=1, ksp_rtol=1e-6)
+DIST_RTOL = 1e-5
+DIST_WORLD = 4
+DIST_TOL = 1e-5                     # |G| parity and u (float32)
+KERNEL_PATHS = {"bulk", "async", "generic", "generic_smem"}
 CU_SOURCE = "ceedpetscsolid_tpu_torch/csrc/fused_apply.cu"
 PROBE_SOURCE = "ceedpetscsolid_tpu_torch/csrc/gather_probe.cu"
 PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
@@ -552,6 +582,169 @@ def gather_phase(dev, card):
         f" ms ({prod['plain_gbps']:.1f} GB/s) ({card})")
     return launches, errs, times, lib, bounds, prod
 
+
+def dist_launch_check(tag, out, jobs):
+    """Every rank launched the fused kernel in each job, by kernel paths
+    only, once per batch apply (so no batch ran the plain version); print
+    each rank's launches by path."""
+    for job, modes in jobs:
+        for r, c in enumerate(out[job + "_counts"]):
+            log(f"    {tag} rank {r} {job}: launches {c['launches']}, batch "
+                f"applies {c['batch_applies']}, by path "
+                + ", ".join(f"{m} {p} {n}"
+                            for (m, p), n in sorted(c["by_path"].items())))
+            if not (set(p for _, p in c["by_path"]) <= KERNEL_PATHS
+                    and all(c["launches"][m] == c["batch_applies"][m] > 0
+                            for m in modes)):
+                raise AssertionError(f"{tag} rank {r} {job}: a batch ran "
+                                     "without the fused kernel")
+
+
+def dist_phase(dev, card, exo, phase11, parts="abcd"):
+    """Phase 18 (see the module docstring). exo: phase 16's HEX27 file;
+    phase11: (SNES, KSP) of phase 11's native-level solve; parts: which of
+    (a)-(d) to run after the serial reference (all, as main() runs it).
+    Returns rank 0's launches by (physics, mode, P, Q) over (b)'s jobs."""
+    import torch
+    import torch.distributed as tdist
+
+    from ceedpetscsolid_tpu_torch.parallel import launch, tasks
+    from ceedpetscsolid_tpu_torch.problem import Config, ElasticityProblem
+
+    t18 = time.perf_counter()
+    store = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dist"
+    store.mkdir(parents=True, exist_ok=True)
+    cfg = dict(DIST_CONFIG, dtype=torch.float32)
+
+    def zero_residual_norm(prob):
+        u0 = torch.zeros((3, prob.fine_space.num_nodes), dtype=prob.dtype,
+                         device=dev)
+        G, _ = prob._nonlinear_residual(u0, prob.bc_values(1.0), prob.F)
+        return float(torch.linalg.norm(G.double()))
+
+    prob = ElasticityProblem(Config(**cfg, device=dev))
+    prob.config.newton.rtol = DIST_RTOL
+    g_ref = zero_residual_norm(prob)
+    info = prob.solve()
+    u_ref = info.u.double().cpu().numpy()
+    log(f"[18] serial reference: hyperFS p4 {cfg['box_faces'][0]}^3 "
+        f"float32, p-MG {prob.level_degrees} + AMG at the fine level "
+        f"quadrature, Newton "
+        f"rtol {DIST_RTOL}: SNES {info.snes_iters}, KSP {info.ksp_iters}, "
+        f"solve {info.solve_time:.3f} s; phase 11 (native levels, Newton "
+        f"rtol 1e-6): SNES {phase11[0]}, KSP {phase11[1]} ({card})")
+    del prob
+    jobs = [("residual", (None, 1.0)), ("solve", {"rtol": DIST_RTOL})]
+
+    def check(tag, out):
+        g = float(np.linalg.norm(out["residual"].astype(np.float64)))
+        rel = abs(g - g_ref) / g_ref
+        s = out["solve"]["info"]
+        u = out["solve"]["u"].astype(np.float64)
+        du = float(np.linalg.norm(u - u_ref) / np.linalg.norm(u_ref))
+        steps = s["step_seconds"]
+        ex = s["exchange_seconds"]
+        share = sum(ex.values()) / max(sum(steps), 1e-30)
+        per_it = ((sum(steps) - sum(s["pc_seconds"]))
+                  / max(s["ksp_iters"], 1) * 1e3)
+        setup = out["setup"][0]
+        log(f"{tag} |G(0)| {g:.9e} vs serial {g_ref:.9e} (rel {rel:.2e}); "
+            f"converged {s['converged']} ({s['reason']}), SNES "
+            f"{s['newton_iters']}, KSP {s['ksp_iters']}, rnorm "
+            f"{s['rnorm']:.3e}, |u - u_serial| / |u_serial| {du:.2e}")
+        log(f"    solve {s['wall_s']:.3f} s; wall per Newton step "
+            + ", ".join(f"{t:.3f}" for t in steps) + " s; seconds in the "
+            "exchanges (rank 0, the "
+            + ("device's" if "NCCL" in tag else "host's") + ") " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ex.items())
+            + f": {100 * share:.1f}% of the steps; preconditioner setup "
+            + ", ".join(f"{t:.3f}" for t in s["pc_seconds"])
+            + f" s; wall per CG iteration (steps less setups, over KSP) "
+            f"{per_it:.3f} ms ({card})")
+        log(f"    setup (rank 0): ElasticityProblem {setup['problem_s']:.2f} "
+            f"s, DistributedProblem {setup['distributed_s']:.2f} s, of it "
+            "partition_space " + ", ".join(
+                f"p{d} {t:.3f} s" for d, t in
+                sorted(setup["partition_s"].items())) + f" ({card})")
+        log(f"    halo {out['halo']}; interior elements a level "
+            f"{out['n_elem_int'][0]}")
+        dist_launch_check(tag, out, [("residual", ("residual",)),
+                                     ("solve", ("residual", "jacobian"))])
+        if not (rel <= DIST_TOL and s["converged"]
+                and s["newton_iters"] == info.snes_iters
+                and s["ksp_iters"] <= info.ksp_iters + 2
+                and du <= DIST_TOL):
+            raise AssertionError(f"{tag} the distributed solve disagrees "
+                                 "with the serial one")
+        return s
+
+    if "a" in parts:
+        # one NCCL rank in this process
+        t0 = time.perf_counter()
+        tdist.init_process_group("nccl", store=tdist.FileStore(
+            str(store / f"nccl1_{os.getpid()}"), 1), rank=0, world_size=1)
+        try:
+            a = tasks.problem_task(0, 1, dev, cfg, jobs)
+        finally:
+            tdist.destroy_process_group()
+        sa = check("[18a] NCCL, 1 rank:", a)
+        log(f"    (a) {time.perf_counter() - t0:.1f} s ({card})")
+    counts = {}
+    if "b" in parts:
+        # four gloo ranks on this card
+        t0 = time.perf_counter()
+        b = launch.run(tasks.problem_task, DIST_WORLD, "gloo", dev, store,
+                       args=(cfg, jobs))
+        sb = check(f"[18b] gloo, {DIST_WORLD} ranks on {dev}:", b)
+        vs = (f"vs (a): SNES {sb['newton_iters']} / {sa['newton_iters']}, "
+              f"KSP {sb['ksp_iters']} / {sa['ksp_iters']}; "
+              if "a" in parts else "")
+        log(f"    {vs}(b) {time.perf_counter() - t0:.1f} s ({card})")
+        for job in ("residual", "solve"):
+            for key, n in b[job + "_counts"][0]["by_physics"].items():
+                counts[key] = counts.get(key, 0) + n
+
+    # (c) one Newton step of the composite and the unstructured variants
+    variants = (
+        ("composite", dict(problem="hyperFSIncomp", degree=2, nu=0.3, E=1.0,
+                           test_mode=True, box_faces=(3, 3, 3),
+                           multigrid="logarithmic", num_increments=1,
+                           dtype=torch.float64)),
+        ("unstructured", dict(problem="hyperFS", degree=2, nu=0.3, E=1.0,
+                              test_mode=True, mesh_file=str(exo),
+                              multigrid="logarithmic", num_increments=1,
+                              dtype=torch.float64)))
+    for label, vcfg in variants if "c" in parts else ():
+        t0 = time.perf_counter()
+        g_v = zero_residual_norm(ElasticityProblem(Config(**vcfg,
+                                                          device=dev)))
+        out = launch.run(tasks.problem_task, DIST_WORLD, "gloo", dev, store,
+                         args=(vcfg, [("step", (None, 1.0))]))
+        st = out["step"]
+        rel = abs(st["rnorm_in"] - g_v) / g_v
+        log(f"[18c] {label} ({vcfg['problem']} p2, float64, {DIST_WORLD} "
+            f"gloo ranks): |G_in| {st['rnorm_in']:.6e} -> |G_out| "
+            f"{st['rnorm']:.6e}, CG {st['iters']}, serial parity {rel:.2e}, "
+            f"halo {out['halo']['total_ghosts']} ghosts; "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+        dist_launch_check(f"[18c] {label}", out,
+                          [("step", ("residual", "jacobian"))])
+        if not (rel <= DIST_TOL and st["rnorm"] < st["rnorm_in"]):
+            raise AssertionError(f"[18c] {label}: no parity or no progress")
+
+    # (d) four NCCL ranks, one a card
+    n_cards = torch.cuda.device_count()
+    if "d" in parts and n_cards >= DIST_WORLD:
+        t0 = time.perf_counter()
+        d = launch.run(tasks.problem_task, DIST_WORLD, "nccl", "cuda", store,
+                       args=(cfg, jobs))
+        check(f"[18d] NCCL, {DIST_WORLD} ranks on {DIST_WORLD} cards:", d)
+        log(f"    (d) {time.perf_counter() - t0:.1f} s ({card})")
+    elif "d" in parts:
+        log(f"[18d] NCCL on {DIST_WORLD} cards: not run, this machine has "
+            f"{n_cards} card(s)")
+    log(f"    phase 18 {time.perf_counter() - t18:.1f} s ({card})")
+    return counts
 
 def main():
     try:
@@ -1062,6 +1255,7 @@ def main():
                du_slack=True, **amg)
     main_counts.append(c11)
     prob11, info11 = prob, info         # phase 17 post-processes this solve
+    info11_snes, info11_ksp = info.snes_iters, info.ksp_iters   # phase 18
     solve11_s = info.solve_time
     del prob, info
     torch.cuda.empty_cache()
@@ -1391,6 +1585,17 @@ def main():
     del prob, info, parsed
     log(f"    phase 17 {time.perf_counter() - t17:.1f} s")
 
+    # ---- 18. the distributed driver -----------------------------------------
+    c18 = dist_phase(dev, card, exo, (info11_snes, info11_ksp))
+    need("[18]", c18, [("hyperFS", "residual", 5, 5),
+                       ("hyperFS", "jacobian", 5, 5),
+                       ("hyperFS", "jacobian", 3, 5),
+                       ("hyperFS", "jacobian", 2, 5)])
+    main_counts.append(c18)
+    launches18 = {m: sum(k for (ph, mm, _, _), k in c18.items()
+                         if ph == "hyperFS" and mm == m)
+                  for m in ("residual", "jacobian")}
+
     def instances(physics, mode, generic=False):
         """'P,Q' -> launches of one physics and mode over the main paths,
         of the template instances or of the generic tile."""
@@ -1453,7 +1658,8 @@ def main():
     # function (none computes the fused apply's)
     kernels = [
         {"name": f"fused_apply_{mode}", "route": "cuda", "source": CU_SOURCE,
-         "replaces": TPU_KERNEL, "launches": launches7[mode],
+         "replaces": TPU_KERNEL,
+         "launches": launches7[mode] + launches18[mode],
          "max_abs_err": e, "ms": times[mode], "plain_ms": times[mode + "_plain"],
          "device_ms": dtimes[mode], "plain_device_ms": dtimes[mode + "_plain"],
          **bound(bounds[mode], dtimes[mode]), "library_ms": None,
@@ -1498,5 +1704,43 @@ def main():
     return 0
 
 
+def phase18_alone(parts):
+    """Phase 18's parts (any of "abcd") after the build alone, e.g. (d) on
+    a four-card machine; phase 11's counts are not printed, and (c) writes
+    phase 16's HEX27 file first."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ceedpetscsolid_tpu_torch import native
+    from ceedpetscsolid_tpu_torch.csrc.build import build
+    from ceedpetscsolid_tpu_torch.mesh.scrambled import scrambled_box_mesh
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        amg_build = pool.submit(native.build)
+        build()
+    amg_build.result()
+    card = card_line()
+    log(f"[2] build {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.device_count()} card(s): {card}")
+    exo = None
+    if "c" in parts:
+        k = EXODUS_BOX
+        scr = scrambled_box_mesh((k, k, k), k)
+        exo = Path(__file__).resolve().parent / "build" / "chip_smoke"
+        exo.mkdir(parents=True, exist_ok=True)
+        exo = exo / f"scrambled{k}_hex27.exo"
+        write_exodus_hex27(exo, scr, {998: faces_on(scr, 0, 0.0),
+                                      999: faces_on(scr, 0, 1.0)})
+    dist_phase(torch.device("cuda"), card, exo, ("-", "-"), parts)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase18"] and len(sys.argv) == 3:
+        sys.exit(phase18_alone(sys.argv[2]))
+    if sys.argv[1:]:
+        sys.exit(f"usage: {sys.argv[0]} [--phase18 PARTS]")
     sys.exit(main())

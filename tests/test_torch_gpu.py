@@ -624,3 +624,85 @@ def test_resume_on_gpu_matches_unbroken(cuda):
         0.1 * full.ksp_iters
     assert float(torch.linalg.norm(rest.u - full.u)
                  / torch.linalg.norm(full.u)) <= 1e-8
+
+
+# -- the distributed driver (parallel/) on the card --------------------------
+DIST = dict(problem="hyperFS", degree=2, nu=0.3, E=1.0, test_mode=True,
+            box_faces=(3, 3, 3), multigrid="logarithmic", num_increments=2)
+KERNEL_PATHS = {"bulk", "async", "generic", "generic_smem"}
+
+
+def test_dist_nccl_world1_residual_matches_serial_kernel(cuda, tmp_path):
+    """One NCCL rank in this process: residual_apply (the kernel on the
+    interior batch; one rank has no boundary batch) against the serial
+    kernel operator, float64, to 1e-12 of max |G|, every batch apply a
+    kernel launch."""
+    import torch.distributed as tdist
+
+    from ceedpetscsolid_tpu_torch.parallel.driver import DistributedProblem
+
+    if not tdist.is_nccl_available():
+        pytest.skip("torch was built without NCCL")
+    prob = ElasticityProblem(Config(**DIST, device=cuda, dtype=torch.float64))
+    N = prob.fine_space.num_nodes
+    u = torch.as_tensor(np.random.default_rng(4).standard_normal((3, N))
+                        * 1e-3, device=cuda)
+    G_ref, _ = prob._nonlinear_residual(u, prob.bc_values(1.0), prob.F)
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        dp = DistributedProblem(prob)
+        fa.COUNTS.reset()
+        G = dp.to_global(dp.residual_apply(dp.to_owned(u), 1.0))
+        launches = fa.COUNTS.residual_launches
+    finally:
+        tdist.destroy_process_group()
+    ref = G_ref.cpu().numpy()
+    assert np.abs(G - ref).max() <= 1e-12 * np.abs(ref).max()
+    assert launches == dp.batch_applies["residual"] > 0
+
+
+@pytest.fixture(scope="module")
+def gloo4_on_card(tmp_path_factory):
+    """Four gloo ranks on cuda:0: the residual at a seeded u and the p-MG
+    + AMG solve, float64, and the float64 plain (CPU) problem's."""
+    from ceedpetscsolid_tpu_torch import native
+    from ceedpetscsolid_tpu_torch.parallel import launch, tasks
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on a GPU")
+    native.build()
+    fa._library()                   # built once, before the ranks load it
+    cpu = ElasticityProblem(Config(**DIST, device="cpu"))
+    N = cpu.fine_space.num_nodes
+    u = np.random.default_rng(4).standard_normal((3, N)) * 1e-3
+    G, _ = cpu._nonlinear_residual(torch.as_tensor(u), cpu.bc_values(1.0),
+                                   cpu.F)
+    out = launch.run(tasks.problem_task, 4, "gloo", "cuda:0",
+                     tmp_path_factory.mktemp("store"),
+                     args=(dict(DIST, dtype=torch.float64),
+                           [("residual", (u, 1.0)), ("solve", {})]))
+    return out, G.numpy(), cpu.solve()
+
+
+def test_dist_gloo4_on_card_matches_plain(gloo4_on_card):
+    """Residual to 1e-12 of max |G| and solution to 1e-10 of the float64
+    plain operator's serial solve (the distributed p-MG integrates its
+    levels at the fine quadrature, the serial one at their own)."""
+    out, G, info = gloo4_on_card
+    assert np.abs(out["residual"] - G).max() <= 1e-12 * np.abs(G).max()
+    assert out["solve"]["info"]["converged"]
+    u = info.u.numpy()
+    assert np.abs(out["solve"]["u"] - u).max() <= 1e-10 * np.abs(u).max()
+
+
+def test_dist_gloo4_every_rank_launches_the_kernel(gloo4_on_card):
+    """Every rank launched the fused kernel in both jobs, by kernel paths
+    only, once per batch apply: no batch ran the plain version."""
+    out, _, _ = gloo4_on_card
+    for job in ("residual", "solve"):
+        for c in out[job + "_counts"]:
+            assert set(p for _, p in c["by_path"]) <= KERNEL_PATHS
+            for mode in ("residual", "jacobian") if job == "solve" else (
+                    "residual",):
+                assert c["launches"][mode] == c["batch_applies"][mode] > 0
