@@ -12,7 +12,10 @@ assembled p = 1 CSR, chebyshev a matrix-free p = 1 Chebyshev polynomial; at
 -degree 1 under a multigrid schedule the AMG V-cycle is the whole
 preconditioner (PCGAMG); -multigrid none is Jacobi CG.
 
-Runs on CUDA (float32) and raises when no CUDA device is present; the CPU
+Runs on CUDA (float32) and raises when no CUDA device is present; every
+-degree up to 63 runs there through the hand-written fused apply, from
+degree 14 on the global-memory body of its generic tile (an element's
+buffers exceed a block's shared memory). The CPU
 (float64) runs only when asked for, by the environment setting
 CEEDPETSCSOLID_TORCH_DEVICE=cpu (the counterpart of the JAX CLI honouring
 JAX_PLATFORMS=cpu). -mesh <file> reads an unstructured Exodus-II hex

@@ -18,9 +18,10 @@
 // coarse level at the fine level's rule or a -qextra run; P > Q = 1 is the
 // pressure term at one point per element on every level. Every other
 // (physics, P, Q) runs on the generic tile, whose P and Q are run-time
-// arguments (generic_reg_kernel up to P, Q = 8, generic_tile_kernel above):
-// the pressure term at Q = 1 + qextra > 1 and everything above Q = 6, as
-// far as its shared memory fits a block.
+// arguments (generic_reg_kernel up to P, Q = 8, generic_tile_kernel above,
+// generic_gmem_kernel where one element's buffers exceed a block's shared
+// memory): the pressure term at Q = 1 + qextra > 1 and everything above
+// Q = 6, up to P, Q = 64.
 // Per element: gather the 3 x P^3 nodal values through `conn` (orientation is
 // already resolved by the FE-space numbering, so the TPU kernel's class rows,
 // orientation masks and selection GEMMs have no counterpart), contract to the
@@ -1457,7 +1458,8 @@ warp_tile_kernel(const T* __restrict__ u, long long N,
 // -qextra), in both modes and both types. Up to P, Q = kGenericRegCap the
 // register bodies below run it (generic_reg_kernel); above, this
 // shared-memory body (generic_tile_kernel, "smem"): one instance a
-// (physics, mode, type), 20 kernels.
+// (physics, mode, type), 20 kernels, and as many of the global-memory
+// body.
 // A block of kGenericThreads threads takes a tile of E elements (generic_
 // plan: about a thread a quadrature point, within kGenericBudget of shared
 // memory; one element once Q^3 >= 256). Every phase gives a thread one
@@ -1470,7 +1472,9 @@ warp_tile_kernel(const T* __restrict__ u, long long N,
 //   2 Q P + E (max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3)),
 // 72.8 KB in f32 and 145.6 KB in f64 at (P, Q) = (10, 10). An apply whose
 // one-element tile needs more than a block may have (232,448 bytes on the
-// H100) is refused: the first is (12, 12) in f64, (15, 15) in f32.
+// H100; the first are (12, 12) in f64, (15, 15) in f32 and the pressure
+// term's (21, 2) in f64) runs the global-memory body below
+// (generic_gmem_kernel, "gmem") instead, on the same phases.
 // What bounds it on the card: as the template instances, memory on paper;
 // in practice its shared-memory traffic (no register rows: every operand of
 // every contraction is a shared load) and its block barriers: no register
@@ -1505,37 +1509,30 @@ __host__ __device__ constexpr GenericPlan generic_plan(int P, int Q,
   return GenericPlan{E, a, b, (size_t)tsize * (bd + (size_t)E * (a + b))};
 }
 
+// The phases of one tile of the shared-memory body, or of one element of
+// the global-memory body: ne elements from e0, element e's buffers A and B
+// at bufA + e * A and bufB + e * B1 (shared memory, or a block's slice of
+// the global workspace). sB, sD: B and D in shared memory, whose loads the
+// caller issues first; the barrier after the gather completes them. No
+// barrier at the end: a next element's gather writes only buffer A, which
+// the adjoint x phase no longer reads.
 template <int PH, bool JAC, typename T>
-__global__ void __launch_bounds__(kGenericThreads)
-generic_tile_kernel(int P, int Q, int E, int A, int B1,
-                    const T* __restrict__ u, long long N,
-                    const long long* __restrict__ conn, int nelem,
-                    const T* __restrict__ qdata, const T* __restrict__ Bg,
-                    const T* __restrict__ Dg, T* __restrict__ stash,
-                    T* __restrict__ ve, T a, T b) {
+__device__ __forceinline__ void generic_tile(
+    int P, int Q, int A, int B1, int e0, int ne, const T* sB, const T* sD,
+    T* bufA, T* bufB, const T* __restrict__ u, long long N,
+    const long long* __restrict__ conn, int nelem,
+    const T* __restrict__ qdata, T* __restrict__ stash, T* __restrict__ ve,
+    T a, T b) {
   constexpr bool kStashIn = JAC && Pointwise<PH>::kStash;
   const int P2 = P * P, P3 = P2 * P, Q2 = Q * Q, Q3 = Q2 * Q;
   const int T1 = 3 * P2 * Q;   // one t1 (and adjoint t1) array
   const int T2 = 3 * Q2 * P;   // one t2 (and adjoint t2) array
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sB = reinterpret_cast<T*>(smem);  // B[q][p] at q * P + p
-  T* sD = sB + Q * P;
-  T* bufA = sD + Q * P;                // element e at e * A
-  T* bufB = bufA + E * A;              // element e at e * B1
-
   const int tid = threadIdx.x;
   const int NT = blockDim.x;
-  const int e0 = blockIdx.x * E;
-  const int ne = min(E, nelem - e0);
   const size_t plane = (size_t)nelem * Q3;
   const size_t off0 = (size_t)e0 * Q3;  // the tile's first point in a plane
 
-  // ---- B, D; the nodal gather into ue ----
-  for (int i = tid; i < Q * P; i += NT) {
-    sB[i] = Bg[i];
-    sD[i] = Dg[i];
-  }
+  // ---- the nodal gather into ue ----
   const long long* ce = conn + (size_t)e0 * P3;
   for (int i = tid; i < ne * P3; i += NT) {
     const long long node = ce[i];
@@ -1705,6 +1702,72 @@ generic_tile_kernel(int P, int Q, int E, int A, int B1,
   }
 }
 
+// B and D (Q x P each) into shared memory at sB and sB + Q P.
+template <typename T>
+__device__ __forceinline__ void load_bd(int P, int Q, const T* __restrict__ Bg,
+                                        const T* __restrict__ Dg, T* sB) {
+  for (int i = threadIdx.x; i < Q * P; i += blockDim.x) {
+    sB[i] = Bg[i];
+    sB[Q * P + i] = Dg[i];
+  }
+}
+
+template <int PH, bool JAC, typename T>
+__global__ void __launch_bounds__(kGenericThreads)
+generic_tile_kernel(int P, int Q, int E, int A, int B1,
+                    const T* __restrict__ u, long long N,
+                    const long long* __restrict__ conn, int nelem,
+                    const T* __restrict__ qdata, const T* __restrict__ Bg,
+                    const T* __restrict__ Dg, T* __restrict__ stash,
+                    T* __restrict__ ve, T a, T b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sB = reinterpret_cast<T*>(smem);  // B[q][p] at q * P + p, then D
+  T* bufA = sB + 2 * Q * P;            // element e at e * A
+  load_bd(P, Q, Bg, Dg, sB);
+  const int e0 = blockIdx.x * E;
+  generic_tile<PH, JAC, T>(P, Q, A, B1, e0, min(E, nelem - e0), sB,
+                           sB + Q * P, bufA, bufA + E * A, u, N, conn, nelem,
+                           qdata, stash, ve, a, b);
+}
+
+// ---------------------------------------------------------------------------
+// The global-memory body (generic_gmem_kernel, "gmem"): every generic
+// (physics, P, Q) whose one-element tile needs more shared memory than a
+// block may opt in to. It runs generic_tile, the shared-memory body's
+// phases, one element at a time, with buffers A and B in the block's slice
+// of a global-memory workspace (A + B words a block; the wrapper allocates
+// the workspace through torch's caching allocator); B and D stay in shared
+// memory (2 Q P words). The grid is persistent: min(nelem,
+// kGmemBlocksPerSm x SMs) blocks of kGenericThreads threads, block k taking
+// elements k, k + gridDim.x, ...
+// What bounds it on the card: the buffers' traffic. Every contraction
+// operand is a load from the workspace (an element's buffers are 243 KB at
+// (15, 15) f32 and 249 KB at (12, 12) f64, more than an SM's L1, so most
+// come from L2), and at the solves' 125-216 elements about one block of
+// 256 threads runs an SM. A design that keeps an element on chip (a
+// cluster of CTAs splitting it by z-slab over distributed shared memory,
+// or registers holding each thread's points) is the next step.
+// ---------------------------------------------------------------------------
+constexpr int kGmemBlocksPerSm = 2;
+
+template <int PH, bool JAC, typename T>
+__global__ void __launch_bounds__(kGenericThreads)
+generic_gmem_kernel(int P, int Q, int A, int B1, T* work,
+                    const T* __restrict__ u, long long N,
+                    const long long* __restrict__ conn, int nelem,
+                    const T* __restrict__ qdata, const T* __restrict__ Bg,
+                    const T* __restrict__ Dg, T* __restrict__ stash,
+                    T* __restrict__ ve, T a, T b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sB = reinterpret_cast<T*>(smem);
+  load_bd(P, Q, Bg, Dg, sB);
+  T* bufA = work + (size_t)blockIdx.x * (A + B1);
+  for (int e = blockIdx.x; e < nelem; e += gridDim.x)
+    generic_tile<PH, JAC, T>(P, Q, A, B1, e, 1, sB, sB + Q * P, bufA,
+                             bufA + A, u, N, conn, nelem, qdata, stash, ve, a,
+                             b);
+}
+
 // ---------------------------------------------------------------------------
 // The generic tile's register bodies (generic_reg_kernel): every generic
 // (physics, P, Q) with P, Q <= kGenericRegCap, which holds every pair the
@@ -1753,7 +1816,7 @@ generic_tile_kernel(int P, int Q, int E, int A, int B1,
 //   B: t1 [b|d][c][pz][qx] rows of PP -> du/dv planes [3c+k] of the tile's
 //      points -> adjoint t1 [0|1][c][pz][py] rows of QQ
 // ---------------------------------------------------------------------------
-constexpr int kGenericRegCap = 8;      // P, Q above it: the smem body
+constexpr int kGenericRegCap = 8;      // P, Q above it: the smem or gmem body
 constexpr int kGenericWarpQ = 3;       // Q <= 3: a warp a tile
 constexpr int kGenericWarpsPerSm = 4;  // tiles an SM before E grows
 constexpr int kGatherBatch = 4;        // node ids in flight a thread
@@ -1764,15 +1827,26 @@ enum GenericBody {
   kBodyWarp6x2 = 2,  // warp team, PC = 6, QC = 2
   kBodyWarp8x3 = 3,  // warp team, PC = 8, QC = 3
   kBodyBlock8 = 4,   // block team, PC = 8, QC = 8
-  kNumBodies = 5
+  kBodyGmem = 5,     // generic_gmem_kernel, where the smem body's one
+                     // element exceeds a block's shared memory
+  kNumBodies = 6
 };
 
-__host__ __device__ constexpr int generic_body(int P, int Q) {
-  return P > kGenericRegCap || Q > kGenericRegCap ? kBodySmem
+// The body at (P, Q) in words of `tsize` bytes, on a device whose blocks
+// may opt in to `optin` bytes of dynamic shared memory.
+__host__ __device__ constexpr int generic_body(int P, int Q, int tsize,
+                                               int optin) {
+  return P > kGenericRegCap || Q > kGenericRegCap
+             ? (generic_plan(P, Q, tsize).smem > (size_t)optin ? kBodyGmem
+                                                               : kBodySmem)
          : Q > kGenericWarpQ ? kBodyBlock8
          : Q > 2 || P > 6    ? kBodyWarp8x3
          : P > 3             ? kBodyWarp6x2
                              : kBodyWarp3x2;
+}
+// Whether a body is one of the register bodies (which stage the streams).
+__host__ __device__ constexpr bool reg_body(int body) {
+  return body != kBodySmem && body != kBodyGmem;
 }
 __host__ __device__ constexpr int body_pc(int body) {
   return body == kBodyWarp3x2 ? 3 : body == kBodyWarp6x2 ? 6 : 8;
@@ -1791,24 +1865,36 @@ struct GenericLaunch {
   int b_words;       // buffer B an element
   int bd_words;      // B, D (Q rows of PCV), B^T, D^T (P rows of QCV)
   size_t smem;       // dynamic shared memory, bytes
-  int tiles;         // blocks
+  int tiles;         // blocks (the gmem body: its persistent grid)
+  size_t work;       // the gmem body's global workspace, bytes (else 0)
 };
 
 // The launch of the generic tile at (P, Q) for `nelem` elements on a card
-// of `sms` SMs (ops/fused_apply.py generic_plan mirrors it).
+// of `sms` SMs whose blocks may opt in to `optin` bytes of shared memory
+// (ops/fused_apply.py generic_plan mirrors it).
 __host__ __device__ constexpr GenericLaunch generic_launch(int P, int Q,
                                                            int tsize,
                                                            int nelem, int sms,
-                                                           int planes) {
+                                                           int planes,
+                                                           int optin) {
   GenericLaunch g{};
-  g.body = generic_body(P, Q);
-  if (g.body == kBodySmem) {
+  g.body = generic_body(P, Q, tsize, optin);
+  if (!reg_body(g.body)) {
     const GenericPlan s = generic_plan(P, Q, tsize);
-    g.elems = s.elems;
     g.threads = kGenericThreads;
     g.a_words = s.a_words;
     g.b_words = s.b_words;
-    g.smem = s.smem;
+    if (g.body == kBodySmem) {
+      g.elems = s.elems;
+      g.smem = s.smem;
+    } else {
+      // one element a block at a time, B and D alone in shared memory
+      g.elems = 1;
+      g.smem = (size_t)tsize * 2 * Q * P;
+      g.tiles = cmin(nelem, kGmemBlocksPerSm * sms);
+      g.work = (size_t)tsize * g.tiles * (s.a_words + s.b_words);
+      return g;
+    }
   } else {
     const int PC = body_pc(g.body), QC = body_qc(g.body);
     const int V = 16 / tsize, Q3 = Q * Q * Q, PP = P | 1, QQ = Q | 1;
@@ -2399,15 +2485,17 @@ cudaError_t launch_pq(int jacobian, int is_double, const void* u, long long N,
 // Launches the generic tile of one (physics, mode, type) in body BODY as
 // `g` plans it; returns the CUDA error of its set-up. `optin`: the most
 // dynamic shared memory a block may opt in to on this device, which the
-// kernel is allowed once a device.
+// kernel is allowed once a device; `work`: the gmem body's workspace
+// (g.work bytes).
 constexpr int kSmemRefused = -2;
+constexpr int kWorkShort = -3;  // the gmem body's workspace is missing or short
 
 template <int PH, bool JAC, typename T, int BODY>
 int launch_generic_body(const GenericLaunch& g, int optin, int P, int Q,
                         const void* u, long long N, const void* conn,
                         int nelem, const void* qdata, const void* B,
                         const void* D, void* stash, void* ve, double a,
-                        double b, int bulk, cudaStream_t stream) {
+                        double b, int bulk, void* work, cudaStream_t stream) {
   static std::atomic<unsigned> ready{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -2424,6 +2512,19 @@ int launch_generic_body(const GenericLaunch& g, int optin, int P, int Q,
         P, Q, g.elems, g.a_words, g.b_words, static_cast<const T*>(u), N,
         static_cast<const long long*>(conn), nelem,
         static_cast<const T*>(qdata), static_cast<const T*>(B),
+        static_cast<const T*>(D), static_cast<T*>(stash),
+        static_cast<T*>(ve), T(a), T(b));
+  } else if constexpr (BODY == kBodyGmem) {
+    auto kernel = generic_gmem_kernel<PH, JAC, T>;
+    if (!(ready.load() >> dev & 1u)) {
+      err = prepare(kernel, static_cast<size_t>(optin));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ready.fetch_or(1u << dev);
+    }
+    kernel<<<g.tiles, g.threads, g.smem, stream>>>(
+        P, Q, g.a_words, g.b_words, static_cast<T*>(work),
+        static_cast<const T*>(u), N, static_cast<const long long*>(conn),
+        nelem, static_cast<const T*>(qdata), static_cast<const T*>(B),
         static_cast<const T*>(D), static_cast<T*>(stash),
         static_cast<T*>(ve), T(a), T(b));
   } else {
@@ -2509,7 +2610,7 @@ template <int PH, int P>
 int dispatch_p(CPS_DISPATCH_PARAMS);
 template <int PH, int BODY>
 int generic_run(const GenericLaunch& g, int optin, int P, int bulk,
-                CPS_DISPATCH_PARAMS);
+                void* work, CPS_DISPATCH_PARAMS);
 
 #if defined(CPS_FUSED_P)
 template <int PH, int P>
@@ -2523,26 +2624,27 @@ template int dispatch_p<CPS_FUSED_PHYS, CPS_FUSED_P>(CPS_DISPATCH_PARAMS);
 #endif
 template <int PH, int BODY>
 int generic_run(const GenericLaunch& g, int optin, int P, int bulk,
-                CPS_DISPATCH_PARAMS) {
+                void* work, CPS_DISPATCH_PARAMS) {
   if (is_double) {
     if (jacobian)
       return launch_generic_body<PH, true, double, BODY>(
           g, optin, P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, a, b,
-          bulk, s);
+          bulk, work, s);
     return launch_generic_body<PH, false, double, BODY>(
         g, optin, P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, a, b,
-        bulk, s);
+        bulk, work, s);
   }
   if (jacobian)
     return launch_generic_body<PH, true, float, BODY>(
         g, optin, P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, a, b,
-        bulk, s);
+        bulk, work, s);
   return launch_generic_body<PH, false, float, BODY>(
       g, optin, P, Q, u, N, conn, nelem, qdata, B, D, stash, ve, a, b, bulk,
-      s);
+      work, s);
 }
 template int generic_run<CPS_FUSED_GENERIC, CPS_GENERIC_BODY>(
-    const GenericLaunch& g, int optin, int P, int bulk, CPS_DISPATCH_PARAMS);
+    const GenericLaunch& g, int optin, int P, int bulk, void* work,
+    CPS_DISPATCH_PARAMS);
 #else
 // P = Pc..FUSED_MAX_Q for one physics; -1 when P has no instance.
 template <int PH, int Pc = 2>
@@ -2570,27 +2672,28 @@ int dispatch_any(int physics, int P, CPS_DISPATCH_PARAMS) {
 // kNumBodies-1.
 template <int PH, int BODYc = 0>
 int dispatch_generic_body(int body, const GenericLaunch& g, int optin, int P,
-                          int bulk, CPS_DISPATCH_PARAMS) {
+                          int bulk, void* work, CPS_DISPATCH_PARAMS) {
   if constexpr (BODYc >= kNumBodies) {
     return -1;
   } else {
     if (body == BODYc)
-      return generic_run<PH, BODYc>(g, optin, P, bulk, CPS_DISPATCH_ARGS);
-    return dispatch_generic_body<PH, BODYc + 1>(body, g, optin, P, bulk,
+      return generic_run<PH, BODYc>(g, optin, P, bulk, work,
+                                    CPS_DISPATCH_ARGS);
+    return dispatch_generic_body<PH, BODYc + 1>(body, g, optin, P, bulk, work,
                                                 CPS_DISPATCH_ARGS);
   }
 }
 
 template <int PHc = 0>
 int dispatch_generic(int physics, const GenericLaunch& g, int optin, int P,
-                     int bulk, CPS_DISPATCH_PARAMS) {
+                     int bulk, void* work, CPS_DISPATCH_PARAMS) {
   if constexpr (PHc >= kNumPhysics) {
     return -1;
   } else {
     if (physics == PHc)
-      return dispatch_generic_body<PHc>(g.body, g, optin, P, bulk,
+      return dispatch_generic_body<PHc>(g.body, g, optin, P, bulk, work,
                                         CPS_DISPATCH_ARGS);
-    return dispatch_generic<PHc + 1>(physics, g, optin, P, bulk,
+    return dispatch_generic<PHc + 1>(physics, g, optin, P, bulk, work,
                                      CPS_DISPATCH_ARGS);
   }
 }
@@ -2630,14 +2733,16 @@ inline int generic_for(int physics, int P, int Q, int jacobian, int is_double,
   if (r != 0) return r;
   const bool stash_in = jacobian && has_stash(physics);
   *g = generic_launch(P, Q, is_double ? 8 : 4, nelem, lim->sms,
-                      stash_in ? 19 : 10);
+                      stash_in ? 19 : 10, lim->optin);
   return 0;
 }
 
-// Launches the generic tile; the CUDA error of its set-up, or
-// kSmemRefused when its tile needs more shared memory than a block may
-// opt in to on this device.
-inline int launch_generic(int physics, int P, CPS_DISPATCH_PARAMS) {
+// Launches the generic tile; the CUDA error of its set-up, kSmemRefused
+// when its tile needs more shared memory than a block may opt in to on
+// this device, or kWorkShort when the gmem body's workspace `work` holds
+// fewer than the plan's bytes (`work_bytes`: its size).
+inline int launch_generic(int physics, int P, void* work,
+                          long long work_bytes, CPS_DISPATCH_PARAMS) {
   GenericLaunch g;
   DeviceLimits lim;
   const int r = generic_for(physics, P, Q, jacobian, is_double, nelem, &g,
@@ -2645,11 +2750,15 @@ inline int launch_generic(int physics, int P, CPS_DISPATCH_PARAMS) {
   if (r != 0) return r;
   if (g.smem > static_cast<size_t>(lim.optin)) return kSmemRefused;
   if (g.tiles == 0) return 0;
+  if (g.work > 0 &&
+      (work == nullptr || work_bytes < static_cast<long long>(g.work)))
+    return kWorkShort;
   const bool stash_in = jacobian && has_stash(physics);
-  const int bulk = g.body != kBodySmem &&
+  const int bulk = reg_body(g.body) &&
                    bulk_path(is_double ? 8 : 4, nelem, Q, qdata, stash,
                              stash_in);
-  return dispatch_generic(physics, g, lim.optin, P, bulk, CPS_DISPATCH_ARGS);
+  return dispatch_generic(physics, g, lim.optin, P, bulk, work,
+                          CPS_DISPATCH_ARGS);
 }
 #endif
 
@@ -2660,17 +2769,23 @@ extern "C" {
 
 // Launches one fused apply of pointwise physics `physics` on `stream`: the
 // template instance of (physics, P, Q) where there is one, else the generic
-// tile. Returns the CUDA error of the set-up or, after the launch,
+// tile; `work` (`work_bytes` bytes on the device): the workspace of the
+// generic tile's gmem body (cps_fused_plan's out[8] bytes), else unused.
+// Returns the CUDA error of the set-up or, after the launch,
 // cudaGetLastError() (0 on success); -1 when neither runs (physics, P, Q),
-// -2 when the generic tile needs more shared memory than a block may have.
+// -2 when the generic tile needs more shared memory than a block may have,
+// -3 when the gmem body's workspace is missing or short.
 int cps_fused_apply(int physics, int jacobian, int P, int Q, int is_double,
                     const void* u, long long N, const void* conn, int nelem,
                     const void* qdata, const void* B, const void* D,
-                    void* stash, void* ve, double a, double b, void* stream) {
+                    void* stash, void* ve, double a, double b, void* stream,
+                    void* work, long long work_bytes) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int r = cps::generic_pq(physics, P, Q)
-                    ? cps::launch_generic(physics, P, CPS_DISPATCH_ARGS)
-                    : cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
+  const int r =
+      cps::generic_pq(physics, P, Q)
+          ? cps::launch_generic(physics, P, work, work_bytes,
+                                CPS_DISPATCH_ARGS)
+          : cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
   if (r != 0) return r;
   return static_cast<int>(cudaGetLastError());
 }
@@ -2678,9 +2793,10 @@ int cps_fused_apply(int physics, int jacobian, int P, int Q, int is_double,
 // The launch cps_fused_apply makes for the same arguments, without making
 // it: out = {elements a tile, threads a block, dynamic shared memory bytes,
 // tiles (blocks), path (1 TMA bulk, 0 cp.async; the generic tile: 3 a
-// register body, 2 the shared-memory body), minimum blocks an SM of
-// __launch_bounds__, the generic register body's copy path (1 TMA bulk,
-// 0 cp.async; else -1), the generic tile's body (GenericBody; else -1)}.
+// register body, 2 the shared-memory body, 4 the global-memory body),
+// minimum blocks an SM of __launch_bounds__, the generic register body's
+// copy path (1 TMA bulk, 0 cp.async; else -1), the generic tile's body
+// (GenericBody; else -1), the gmem body's workspace bytes (else 0)}.
 // Returns 0, -1 when (physics, P, Q) runs on neither, or the CUDA error of
 // reading the device's limits.
 int cps_fused_plan(int physics, int jacobian, int P, int Q, int is_double,
@@ -2690,22 +2806,24 @@ int cps_fused_plan(int physics, int jacobian, int P, int Q, int is_double,
   const bool stash_in = jacobian && cps::has_stash(physics);
   out[6] = -1;
   out[7] = -1;
+  out[8] = 0;
   if (cps::generic_pq(physics, P, Q)) {
     cps::GenericLaunch g;
     cps::DeviceLimits lim;
     const int r = cps::generic_for(physics, P, Q, jacobian, is_double, nelem,
                                    &g, &lim);
     if (r != 0) return r;
-    const bool smem = g.body == cps::kBodySmem;
+    const bool reg = cps::reg_body(g.body);
     out[0] = g.elems;
     out[1] = g.threads;
     out[2] = static_cast<long long>(g.smem);
     out[3] = g.tiles;
-    out[4] = smem ? 2 : 3;
+    out[4] = reg ? 3 : g.body == cps::kBodySmem ? 2 : 4;
     out[5] = 1;
-    if (!smem)
+    if (reg)
       out[6] = cps::bulk_path(tsize, nelem, Q, qdata, stash, stash_in) ? 1 : 0;
     out[7] = g.body;
+    out[8] = static_cast<long long>(g.work);
     return 0;
   }
   if (!cps::has_instance(physics, P, Q)) return -1;

@@ -73,7 +73,7 @@ class CSRAssembler:
     atomic scatter-add, the AMG sees the same values from run to run."""
 
     def __init__(self, conn: np.ndarray, num_nodes: int, bc_mask: np.ndarray,
-                 device="cpu"):
+                 device):
         nelem, P3 = conn.shape
         nd = 3 * P3
         n = 3 * num_nodes

@@ -124,7 +124,7 @@ class Basis3D:
 
     @staticmethod
     def create(P: int, Q: int, quad_mode: str = "gauss",
-               dtype=torch.float64, device="cpu") -> "Basis3D":
+               dtype=torch.float64, *, device) -> "Basis3D":
         b1 = Basis1D.create(P, Q, quad_mode)
         B, D = b1.B, b1.D
         grad = np.stack([_kron3(B, B, D),    # d/dX0 (x fastest)

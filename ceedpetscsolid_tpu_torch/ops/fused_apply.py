@@ -24,12 +24,16 @@ the plain version. A (physics, P, Q) with a template instance
 TMA bulk copies or by cp.async, as `copy_path` says (the kernel decides by
 the same rule); every other pair runs on the generic tile, whose P and Q
 are run-time arguments (`is_generic`): a register body up to P, Q = 8,
-the shared-memory body above (`generic_plan` sizes the tile from the
-element count and the card's SMs, and `require_fits` refuses one whose
-shared memory exceeds what a block may have). `COUNTS.by_path` counts
-each path: "bulk", "async", "generic", "generic_smem". `plan` reports the
-launch the kernel makes (tile, threads, shared memory, path, the generic
-tile's body and copy path).
+the shared-memory body above, and the global-memory body where one
+element's buffers exceed the shared memory a block may have, at any
+(P, Q) within `GENERIC_MAX_PQ`. The library chooses the body and sizes
+the tile from the element count and the card's own limits; the wrapper
+allocates the gmem body's workspace at the size the library's plan gives,
+and `generic_plan` mirrors that plan at the H100's limits for the tests
+and `COUNTS`. `COUNTS.by_path` counts each path: "bulk", "async",
+"generic", "generic_smem", "generic_gmem". `plan` reports the launch the
+kernel makes (tile, threads, shared memory, path, the generic tile's body
+and copy path, the workspace).
 
 `min_bytes` and `min_flops` count what one apply must move and compute,
 from shapes alone; `bound_ms` turns them into the least time the card
@@ -75,9 +79,12 @@ _DTYPES = {torch.float32: 0, torch.float64: 1}
 # Above the cap the shared-memory body
 # (generic_tile_kernel, "smem") takes GENERIC_THREADS threads, at most
 # GENERIC_MAX_ELEMS elements a tile. A tile of more than one element stays
-# within GENERIC_BUDGET bytes of shared memory; the most dynamic shared
-# memory a block of the H100 may opt in to
-# (cudaDevAttrMaxSharedMemoryPerBlockOptin) bounds a one-element tile.
+# within GENERIC_BUDGET bytes of shared memory. Where one element needs
+# more than a block of the H100 may opt in to (H100_SMEM_PER_BLOCK,
+# cudaDevAttrMaxSharedMemoryPerBlockOptin) the global-memory body
+# (generic_gmem_kernel, "gmem") runs it: the same phases, one element a
+# block at a time, its buffers in a global workspace, on a persistent grid
+# of GMEM_BLOCKS_PER_SM blocks an SM (fewer with fewer elements).
 GENERIC_THREADS = 256
 GENERIC_MAX_ELEMS = 64
 GENERIC_BUDGET = 64 * 1024
@@ -87,10 +94,11 @@ GENERIC_WARP_Q = 3
 GENERIC_WARPS_PER_SM = 4
 H100_SMEM_PER_BLOCK = 232_448
 H100_SMS = 132
+GMEM_BLOCKS_PER_SM = 2
 BAR_BYTES = 16          # the tile's mbarrier, padded to 16 bytes
 # cps_fused_plan's body codes of the generic tile
 GENERIC_BODIES = {0: "smem", 1: "warp3x2", 2: "warp6x2", 3: "warp8x3",
-                  4: "block8x8"}
+                  4: "block8x8", 5: "gmem"}
 # the register bodies' caps (PC >= P, QC >= Q) of their row arrays
 GENERIC_CAPS = {1: (3, 2), 2: (6, 2), 3: (8, 3), 4: (8, 8)}
 
@@ -243,20 +251,43 @@ def is_generic(physics, P: int, Q: int) -> bool:
 class GenericPlan(NamedTuple):
     """The generic tile's launch (csrc/fused_apply.cu generic_launch)."""
 
-    path: str       # "generic" (a register body) | "generic_smem"
+    path: str       # "generic" (a register body) | "generic_smem" |
+                    # "generic_gmem"
     body: str       # GENERIC_BODIES
     elems: int      # elements a tile (one tile a block)
     threads: int    # threads a block
     smem: int       # dynamic shared memory a block, bytes
     tiles: int      # blocks
+    work: int = 0   # the gmem body's global workspace, bytes
 
 
-def generic_body(P: int, Q: int) -> int:
-    """The generic tile's body at (P, Q) (GENERIC_BODIES): 0 smem above
-    GENERIC_REG_CAP, 4 block8x8 above GENERIC_WARP_Q, else the first warp
-    body whose caps hold (P, Q)."""
+def _buffer_words(P: int, Q: int) -> int:
+    """Buffers A and B of one element of the smem and gmem bodies, in
+    words: max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3)."""
+    return max(3 * P ** 3, 9 * P * Q * Q) + max(6 * P * P * Q, 9 * Q ** 3)
+
+
+def _smem_tile(P: int, Q: int, w: int) -> tuple[int, int]:
+    """The smem body's (elements a tile, shared memory bytes) in words of
+    `w` bytes: min(64, 256 // Q^3) elements, at least 1, fewer while B, D
+    and the tile's buffers exceed GENERIC_BUDGET."""
+    E = max(1, min(GENERIC_MAX_ELEMS, GENERIC_THREADS // Q ** 3))
+    while E > 1 and w * (2 * Q * P + E * _buffer_words(P, Q)) > \
+            GENERIC_BUDGET:
+        E -= 1
+    return E, w * (2 * Q * P + E * _buffer_words(P, Q))
+
+
+def generic_body(P: int, Q: int, dtype) -> int:
+    """The generic tile's body at (P, Q) in `dtype` (GENERIC_BODIES):
+    above GENERIC_REG_CAP 0 smem, or 5 gmem where the smem body's tile
+    needs more than H100_SMEM_PER_BLOCK; else 4 block8x8 above
+    GENERIC_WARP_Q, else the first warp body whose caps hold (P, Q). A
+    mirror of the library's generic_body at the H100's opt-in limit, for
+    the tests and COUNTS; the launch never reads it."""
     if P > GENERIC_REG_CAP or Q > GENERIC_REG_CAP:
-        return 0
+        w = torch.empty((), dtype=dtype).element_size()
+        return 5 if _smem_tile(P, Q, w)[1] > H100_SMEM_PER_BLOCK else 0
     if Q > GENERIC_WARP_Q:
         return 4
     return next(b for b in (1, 2, 3)
@@ -283,19 +314,21 @@ def generic_plan(P: int, Q: int, dtype, nelem: int, sms: int = H100_SMS,
     D (2 Q P)
     and per element max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3) words,
     min(64, 256 // Q^3) elements (at least 1), fewer while above
-    GENERIC_BUDGET."""
+    GENERIC_BUDGET. The gmem body: B and D in shared memory, one element a
+    block at a time on min(nelem, GMEM_BLOCKS_PER_SM sms) blocks, each with
+    its slice of the workspace: one element's buffers A and B."""
     w = torch.empty((), dtype=dtype).element_size()
-    body = generic_body(P, Q)
+    body = generic_body(P, Q, dtype)
     Q3 = Q ** 3
     if body == 0:
-        per = max(3 * P ** 3, 9 * P * Q * Q) + max(6 * P * P * Q, 9 * Q3)
-        bd = 2 * Q * P
-        E = max(1, min(GENERIC_MAX_ELEMS, GENERIC_THREADS // Q3))
-        while E > 1 and w * (bd + E * per) > GENERIC_BUDGET:
-            E -= 1
+        E, smem = _smem_tile(P, Q, w)
         return GenericPlan("generic_smem", GENERIC_BODIES[0], E,
-                           GENERIC_THREADS, w * (bd + E * per),
-                           -(-nelem // E))
+                           GENERIC_THREADS, smem, -(-nelem // E))
+    if body == 5:
+        blocks = min(nelem, GMEM_BLOCKS_PER_SM * sms)
+        return GenericPlan("generic_gmem", GENERIC_BODIES[5], 1,
+                           GENERIC_THREADS, w * 2 * Q * P, blocks,
+                           w * blocks * _buffer_words(P, Q))
     PC, QC = GENERIC_CAPS[body]
     V, PP, QQ = 16 // w, P | 1, Q | 1
     a = max(3 * P * P * PP, 9 * Q * Q * PP, 9 * P * Q * QQ)
@@ -319,22 +352,17 @@ def generic_plan(P: int, Q: int, dtype, nelem: int, sms: int = H100_SMS,
                        -(-nelem // E))
 
 
-def require_fits(physics, P: int, Q: int, dtype):
+def require_fits(physics, P: int, Q: int):
     """Raise NotImplementedError when (physics, P, Q) runs on the generic
-    tile and its one-element tile needs more shared memory than an H100
-    block may have; the CUDA fused apply runs everything else."""
+    tile and lies outside its range (2 <= P <= GENERIC_MAX_PQ,
+    1 <= Q <= GENERIC_MAX_PQ): the CUDA fused apply runs everything else,
+    in either dtype."""
     if not is_generic(physics, P, Q):
         return
     if not (2 <= P <= GENERIC_MAX_PQ and 1 <= Q <= GENERIC_MAX_PQ):
         raise NotImplementedError(
             f"fused CUDA apply takes 2 <= P <= {GENERIC_MAX_PQ} and "
             f"1 <= Q <= {GENERIC_MAX_PQ}, not P={P}, Q={Q}")
-    smem = generic_plan(P, Q, dtype, 1).smem
-    if smem > H100_SMEM_PER_BLOCK:
-        raise NotImplementedError(
-            f"fused CUDA apply at P={P}, Q={Q} ({dtype}): its generic tile "
-            f"needs {smem:,} bytes of shared memory a block, above the "
-            f"{H100_SMEM_PER_BLOCK:,} an H100 block may have")
 
 
 def copy_path(qdata: torch.Tensor, stash_in: torch.Tensor | None) -> str:
@@ -394,21 +422,22 @@ def _library():
         c_ptr, c_ptr,                          # stash, ve
         ctypes.c_double, ctypes.c_double,      # the physics' (a, b)
         c_ptr,                                 # stream
+        c_ptr, ctypes.c_longlong,              # gmem workspace, its bytes
     ]
     lib.cps_fused_apply.restype = c_int
     lib.cps_fused_plan.argtypes = [
         c_int, c_int, c_int, c_int, c_int,     # physics, jacobian, P, Q, f64
         c_int, c_ptr, c_ptr,                   # nelem, qdata, stash
-        ctypes.POINTER(ctypes.c_longlong),     # out[6]
+        ctypes.POINTER(ctypes.c_longlong),     # out[PLAN_WORDS]
     ]
     lib.cps_fused_plan.restype = c_int
     return lib
 
 
 # cps_fused_plan's out[]: elems, threads, smem, tiles, path, min_blocks,
-# the generic tile's copy path and body
-PLAN_WORDS = 8
-PATHS = ("async", "bulk", "generic_smem", "generic")
+# the generic tile's copy path and body, the gmem body's workspace bytes
+PLAN_WORDS = 9
+PATHS = ("async", "bulk", "generic_smem", "generic", "generic_gmem")
 
 
 @dataclass(frozen=True)
@@ -419,10 +448,12 @@ class Plan:
     threads: int        # threads a block
     smem: int           # dynamic shared memory a block, bytes
     tiles: int          # tiles (blocks, or tiles walked by the blocks)
-    path: str           # "bulk" | "async" | "generic" | "generic_smem"
+    path: str           # "bulk" | "async" | "generic" | "generic_smem" |
+                        # "generic_gmem"
     min_blocks: int     # resident blocks an SM that __launch_bounds__ asks
     copy: str | None = None   # the generic tile's streams: "bulk" | "async"
     body: str = ""      # the generic tile's body (GENERIC_BODIES)
+    work: int = 0       # the gmem body's global workspace, bytes
 
 
 def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
@@ -441,10 +472,10 @@ def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
                                   f"{basis.P}, Q={basis.Q} of {pw.name}")
     if r != 0:
         raise RuntimeError(f"fused_apply plan: cuda error {r}")
-    e, t, sm, tiles, path, mb, copy, body = out
+    e, t, sm, tiles, path, mb, copy, body, work = out
     return Plan(e, t, sm, tiles, PATHS[path], mb,
                 None if copy < 0 else ("async", "bulk")[copy],
-                GENERIC_BODIES.get(body, ""))
+                GENERIC_BODIES.get(body, ""), work)
 
 
 def _check(u, conn, qdata, basis: Basis3D, stash,
@@ -456,7 +487,7 @@ def _check(u, conn, qdata, basis: Basis3D, stash,
     P, Q = basis.P, basis.Q
     if dt not in _DTYPES:
         raise TypeError(f"fused CUDA apply takes float32/float64, got {dt}")
-    require_fits(pw, P, Q, dt)
+    require_fits(pw, P, Q)
     nelem = conn.shape[0]
     expect = {
         "u": (u, (3, u.shape[1]), dt),
@@ -485,25 +516,53 @@ def _check(u, conn, qdata, basis: Basis3D, stash,
         raise ValueError(f"nelem={nelem} exceeds the kernel's grid limit")
 
 
+@functools.lru_cache(maxsize=None)
+def _work_bytes(lib, kernel_id: int, jacobian: bool, P: int, Q: int,
+                is_double: int, nelem: int, index: int) -> int:
+    """The gmem body's workspace bytes of this launch on device `index`, as
+    `lib`'s own plan gives them (cps_fused_plan's out[8]; 0 for every
+    other body): the library alone decides the body and the size."""
+    out = (ctypes.c_longlong * PLAN_WORDS)(*([0] * PLAN_WORDS))
+    r = lib.cps_fused_plan(kernel_id, int(jacobian), P, Q, is_double, nelem,
+                           None, None, out)
+    if r != 0:
+        raise RuntimeError(f"fused_apply plan: cuda error {r}")
+    return out[8]
+
+
 def _launch(jacobian: bool, u, conn, qdata, basis, stash, ve, phys,
             pw: Pointwise, lib=None):
     """One launch of `lib`'s cps_fused_apply (the package's own library
-    unless another is given); raises on a CUDA error."""
+    unless another is given), with the gmem body's workspace, from torch's
+    caching allocator on u's device, where it runs; raises on a CUDA
+    error."""
     lib = lib or _library()
     a, b = pw.params(phys)
     with torch.cuda.device(u.device):
+        work = None
+        if is_generic(pw, basis.P, basis.Q):
+            nbytes = _work_bytes(lib, pw.kernel_id, jacobian, basis.P,
+                                 basis.Q, _DTYPES[u.dtype], conn.shape[0],
+                                 torch.cuda.current_device())
+            if nbytes:
+                work = torch.empty(nbytes, dtype=torch.uint8,
+                                   device=u.device)
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.cps_fused_apply(
             pw.kernel_id, int(jacobian), basis.P, basis.Q, _DTYPES[u.dtype],
             u.data_ptr(), u.shape[1], conn.data_ptr(), conn.shape[0],
             qdata.data_ptr(), basis.B.data_ptr(), basis.D.data_ptr(),
             None if stash is None else stash.data_ptr(), ve.data_ptr(),
-            float(a), float(b), stream)
+            float(a), float(b), stream,
+            None if work is None else work.data_ptr(),
+            0 if work is None else work.numel())
     if err != 0:
         raise RuntimeError(
             f"fused_apply kernel launch failed: cuda error {err}" if err > 0
             else "fused_apply: the generic tile needs more shared memory than "
             "a block may have on this device" if err == -2
+            else "fused_apply: the gmem body's workspace is missing or short"
+            if err == -3
             else "fused_apply: no kernel for this (physics, P, Q)")
 
 
@@ -511,8 +570,8 @@ def launch_path(pw: Pointwise, basis: Basis3D, qdata,
                 stash_in=None) -> str:
     """The path a launch takes, as COUNTS.by_path counts it."""
     if is_generic(pw, basis.P, basis.Q):
-        return "generic_smem" if generic_body(basis.P, basis.Q) == 0 \
-            else "generic"
+        return {0: "generic_smem", 5: "generic_gmem"}.get(
+            generic_body(basis.P, basis.Q, qdata.dtype), "generic")
     return copy_path(qdata, stash_in)
 
 

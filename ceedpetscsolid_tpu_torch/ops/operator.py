@@ -93,11 +93,11 @@ class OperatorFactory:
                                    node_ranges=s.entity_node_ranges(),
                                    device=self.device)),
                 basis=Basis3D.create(s.degree + 1, self.Q1d, "gauss", dtype,
-                                     self.device))
+                                     device=self.device))
             if s.degree != fine.degree and q1d is None:
                 Qn = s.degree + 1 + qextra
                 lvl.nat_basis = Basis3D.create(s.degree + 1, Qn, "gauss",
-                                               dtype, self.device)
+                                               dtype, device=self.device)
                 B1, _ = lagrange_matrices(gauss(self.Q1d)[0], gauss(Qn)[0])
                 lvl.stash_interp = torch.as_tensor(
                     np.ascontiguousarray(_kron3(B1, B1, B1).T), dtype=dtype,
@@ -117,7 +117,8 @@ class OperatorFactory:
     def _coords_and_basis(self, dtype, Q1d=None):
         """Element vertex coordinates (3, nelem, 8) and the trilinear
         coordinate basis (2 -> Q), in `dtype`."""
-        cb = Basis3D.create(2, Q1d or self.Q1d, "gauss", dtype, self.device)
+        cb = Basis3D.create(2, Q1d or self.Q1d, "gauss", dtype,
+                            device=self.device)
         return self.coord_restr.gather(self.vertex_coords.to(dtype)), cb
 
     # ------------------------------------------------------------------
@@ -203,7 +204,7 @@ class OperatorFactory:
         f64 = torch.float64
         restr = self.restr
         basis = Basis3D.create(self.space.degree + 1, self.Q1d, "gauss", f64,
-                               self.device)
+                               device=self.device)
         qdata = self.compute_qdata(f64)
 
         def apply(u):
@@ -227,7 +228,7 @@ class OperatorFactory:
         f64 = torch.float64
         restr = self.restr
         P = self.space.degree + 1
-        coll = Basis3D.create(P, P, "gauss_lobatto", f64, self.device)
+        coll = Basis3D.create(P, P, "gauss_lobatto", f64, device=self.device)
 
         def apply(u, qd_coll, mult):
             ue = restr.gather(u.to(f64))            # values at the GLL nodes
@@ -245,7 +246,7 @@ class OperatorFactory:
         f64 = torch.float64
         restr = self.restr
         P = self.space.degree + 1
-        cb = Basis3D.create(2, P, "gauss_lobatto", f64, self.device)
+        cb = Basis3D.create(2, P, "gauss_lobatto", f64, device=self.device)
         dxdX = cb.apply_grad(self.coord_restr.gather(self.vertex_coords))
         qd_coll = geometry.setup_geo(
             dxdX, torch.ones(P ** 3, dtype=f64, device=self.device))
@@ -263,7 +264,7 @@ class OperatorFactory:
         Restriction is its exact transpose (src/matops.c:160-203)."""
         c, f = self.levels[coarse_level], self.levels[fine_level]
         c2f = Basis3D.create(c.space.degree + 1, f.space.degree + 1,
-                             "gauss_lobatto", self.dtype, self.device)
+                             "gauss_lobatto", self.dtype, device=self.device)
         rc, rf = c.restr, f.restr
         inv_mult = self.fine_inv_multiplicity(fine_level)
 

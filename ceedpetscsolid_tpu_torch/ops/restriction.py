@@ -29,7 +29,7 @@ class Restriction:
     """
 
     def __init__(self, conn: np.ndarray, num_nodes: int,
-                 node_ranges: list | None = None, device="cpu"):
+                 node_ranges: list | None = None, *, device):
         self.num_nodes = int(num_nodes)
         self.nelem, self.P3 = conn.shape
         self.conn = torch.as_tensor(np.asarray(conn, np.int64), device=device)

@@ -81,7 +81,7 @@ def build_dist_levels(problem, part_fine: SpacePartition, comm: Comm,
         c2f = inv_mult = None
         if prev_degree is not None:
             c2f = Basis3D.create(prev_degree + 1, space.degree + 1,
-                                 "gauss_lobatto", dt, dev)
+                                 "gauss_lobatto", dt, device=dev)
             mult = np.bincount(space.conn.reshape(-1),
                                minlength=space.num_nodes).astype(np.float64)
             mult[mult == 0] = 1.0

@@ -50,10 +50,11 @@ from .utils.timing import StageLog, sync
 class Config:
     """CLI-equivalent options (reference src/cloptions.c:26-285).
 
-    `mesh_file` (an Exodus-II file) replaces the box. On CUDA a degree
-    whose generic fused-apply tile needs more shared memory than a block
-    may have raises NotImplementedError naming the bytes
-    (ops/fused_apply.require_fits). The JAX package's
+    `mesh_file` (an Exodus-II file) replaces the box. On CUDA every degree
+    runs the hand-written fused apply: above the shared memory of a block
+    its generic tile keeps an element's buffers in global memory (the gmem
+    body); a (P, Q) above its range (P or Q > 64) raises
+    NotImplementedError (ops/fused_apply.require_fits). The JAX package's
     `pc_precision` (bf16 MXU passes inside the V-cycle) has no counterpart:
     float32 contractions here run in IEEE f32 with TF32 off."""
 
@@ -133,8 +134,7 @@ class Config:
             # the fine level's (P, Q) is the largest of the problem (coarse
             # levels and the pressure term have fewer nodes or points)
             P = self.degree + 1
-            require_fits(get_model(self.problem).name, P, P + self.qextra,
-                         self.dtype)
+            require_fits(get_model(self.problem).name, P, P + self.qextra)
 
     @property
     def pascal(self) -> float:

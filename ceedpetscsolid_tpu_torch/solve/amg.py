@@ -55,7 +55,7 @@ class AMGPreconditioner:
     float), and the transfer to the next level as "p_dense"/"pt_dense" or
     "p_idx"/"p_val"/"pt_idx"/"pt_val"."""
 
-    def __init__(self, dtype, device="cpu", theta: float = 0.0,
+    def __init__(self, dtype, device, theta: float = 0.0,
                  max_levels: int = 10, coarse_size: int = 600,
                  smooth_its: int = 2, top_mf: bool = False,
                  dense_n: int = 4096):

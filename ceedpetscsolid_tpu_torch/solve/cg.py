@@ -194,8 +194,11 @@ def estimate_extreme_eigs(
     bad = ~np.isfinite(ab).all(axis=1) | (ab[:, 0] == 0)
     k = int(np.argmax(bad)) if bad.any() else iters
     if k == 0:
-        raise FloatingPointError("eigenvalue estimate: the first Lanczos "
-                                 f"step gave alpha = {ab[0, 0]}")
+        # no step to keep: a level without free DOFs (p = 1 on one
+        # element, every node on the boundary), where p.Ap = 0. JAX's
+        # bounds, NaN: an AMG coarse solve never reads them, a Chebyshev
+        # one turns them into a non-finite step, as in the JAX package
+        return math.nan, math.nan
     alphas, betas = ab[:k, 0], ab[:k, 1]
     # Lanczos tridiagonal from CG coefficients
     diag = 1.0 / alphas

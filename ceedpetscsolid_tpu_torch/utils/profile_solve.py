@@ -1,10 +1,13 @@
-"""Device profile of the hyperFS degree-4 solve: Jacobi CG against p-MG CG.
+"""Device profile of the hyperFS solve: Jacobi CG against p-MG CG.
 
     python -m ceedpetscsolid_tpu_torch.utils.profile_solve [--box 16]
+        [--degree 4] [--dtype float32|float64]
         [--coarse chebyshev|amg|both] [--out DIR]
 
 The problem is chip_smoke.py's phases 6, 7 and 11: hyperFS degree 4 on a
-box^3 box, -test, one increment, float32, ksp_rtol 1e-6; p-MG with
+box^3 box, -test, one increment, float32, ksp_rtol 1e-6 (float64: 1e-10);
+--degree 14 --box 5 and --degree 11 --box 6 --dtype float64 are phase
+19's (the generic tile's gmem body on the fine level); p-MG with
 logarithmic levels, native level quadrature and the Chebyshev coarse solve
 (--coarse chebyshev, the default), the AMG coarse solve (--coarse amg; its
 refresh split is printed too), or both. For each preconditioner it runs
@@ -34,8 +37,10 @@ from ..problem import Config, ElasticityProblem, select_device
 
 TOP = 8
 # a fused-apply kernel's name: cps::<body>_kernel<physics, jacobian, P, Q, T>,
-# or cps::generic_tile_kernel<physics, jacobian, T>
-FUSED = re.compile(r"cps::\w+_kernel<\d+, (true|false), (?:\d+, \d+, )?\w+>")
+# cps::generic_tile_kernel<physics, jacobian, T> (and generic_gmem_kernel),
+# or cps::generic_reg_kernel<physics, jacobian, T, body>
+FUSED = re.compile(
+    r"cps::\w+_kernel<\d+, (true|false), (?:\d+, \d+, )?\w+(?:, \d+)?>")
 
 
 def make_problem(box: int, multigrid: str, device, dtype=torch.float32,
@@ -122,6 +127,9 @@ def profile(prob: ElasticityProblem) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--box", type=int, default=16)
+    ap.add_argument("--degree", type=int, default=4)
+    ap.add_argument("--dtype", choices=("float32", "float64"),
+                    default="float32")
     ap.add_argument("--coarse", choices=("chebyshev", "amg", "both"),
                     default="chebyshev",
                     help="coarse solve of the p-MG preconditioner")
@@ -138,12 +146,16 @@ def main(argv=None) -> int:
     if args.coarse in ("amg", "both"):
         runs.append(("pmg_amg", "logarithmic", "amg"))
     for tag, mg, coarse in runs:
-        r = profile(make_problem(args.box, mg, dev, coarse_solve=coarse))
+        r = profile(make_problem(args.box, mg, dev,
+                                 getattr(torch, args.dtype),
+                                 coarse_solve=coarse, degree=args.degree))
         table = r.pop("table")
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
-            (args.out / f"profile_{tag}_{args.box}.txt").write_text(table)
-        print(f"[{tag}] hyperFS p4 {args.box}^3 float32: SNES {r['snes']}, "
+            (args.out / f"profile_{tag}_{args.box}_p{args.degree}_"
+             f"{args.dtype}.txt").write_text(table)
+        print(f"[{tag}] hyperFS p{args.degree} {args.box}^3 {args.dtype}: "
+              f"SNES {r['snes']}, "
               f"KSP {r['ksp']}, solve {r['solve_s']:.4f} s (pc setup "
               f"{r['pc_setup_s']:.4f} s; profiled {r['profiled_solve_s']:.4f}"
               f" s)")

@@ -52,7 +52,17 @@ Phases, each of which raises on failure:
      phase 14; hyperFS (7, 7) on 6^3, phase 15) and at (5, 2) on 24^3 and
      (7, 7) on 12^3, each shape held against the plain version as above
      and then timed, float32, call and device, beside the bound and the
-     launch plan;
+     launch plan; then the global-memory body ("gmem": where one
+     element's buffers exceed a block's shared memory) at (12, 12) f64
+     (every physics with a stash, linElas), (15, 15) f32 and the pressure
+     term's (21, 2) f64 on one element, streams one word off 16 bytes at
+     (12, 12), and a persistent grid with a ragged last round (7^3: 343
+     elements on 264 blocks), each against the plain version (the input's
+     amplitude divided by (P / 5)^2, so that gradu stays ~1e-2: a random
+     nodal field's gradient grows with P^2, and at O(1) strain float32
+     rounding is amplified in the plain version too); and timed where
+     phase 19 launches it, (15, 15) f32 on 5^3 and (12, 12) f64 on 6^3,
+     with its (9, 9) level (the smem body) on each;
   4. CUDA-event times (median of 20 calls after warm-up) of kernel and plain
      version, residual and J.v, at the 24^3 degree-4 shapes, in float32: of
      one call, the host's enqueue included, and of the device's work alone
@@ -147,12 +157,22 @@ Phases, each of which raises on failure:
      degree 2 on phase 16's HEX27 file (Config.mesh_file), both p-MG +
      AMG, on four gloo ranks: entry |G| to 1e-5 of the serial operator's,
      |G| decreasing; (d) four NCCL ranks, one a card, only where the
-     machine has four cards (otherwise one line says so).
+     machine has four cards (otherwise one line says so);
+ 19. the high degrees, phase 15's -test setup, p-MG + AMG: hyperFS degree
+     14, float32, on the 5^3 box (1,073,733 DoF, levels [1, 2, 4, 8, 14])
+     through cli.main (with -num_steps 1, as phase 15's one increment),
+     held to its float64 twin at phase 15's tolerances (SNES and KSP
+     printed beside the twin's); hyperFS degree 11, float64, on the 6^3
+     box (902,289 DoF, levels [1, 2, 4, 8, 11]) through
+     ElasticityProblem. Their fine levels, (15, 15) and (12, 12), run the
+     generic tile's gmem body, which each must launch in both modes; the
+     launches are printed per path (template instances: bulk, async;
+     generic: the register bodies, smem, gmem).
 In phases 10-13 CG may exit on p.Ap <= 0 (the sign of an AMG cycle that
 stopped being SPD in float32) no more often than in the float64 twin
 (phase 12's clamp solves, whose tangents are themselves indefinite at the
 first Newton steps), and not at all elsewhere. Kernel launch counters are
-set to 0 just before each main path (phases 6-17) and read just after,
+set to 0 just before each main path (phases 6-17, 19) and read just after,
 the fused apply's also per copy path (phase 18: per job on every rank).
 Then one JSON line of per-kernel
 results (each with its bound from this run's shapes, `bound_by`, and
@@ -160,9 +180,10 @@ results (each with its bound from this run's shapes, `bound_by`, and
 which no one PyTorch call computes; K6 also carries `matmul_ms`, the
 one-hot product through cuBLAS, and K5 its production-shape numbers),
 the card line, and as the last line
-{"ok": true, "device": {...}}. Without a CUDA device it exits 2, without
-the package beside this script 3, and it prints no result; any other
-error propagates with its traceback.
+{"ok": true, "device": {...}}. The generic tile's rows name the body
+(generic_plan) and the dtype of the shape they time. Without a CUDA
+device it exits 2, without the package beside this script 3, and it
+prints no result; any other error propagates with its traceback.
 """
 
 import contextlib
@@ -226,14 +247,32 @@ GENERIC_EDGES = (("1^3", (1, 1, 1), 5, 2, PRESSURE, False),
                  ("11^3", (11, 11, 11), 3, 2, PRESSURE, False),
                  ("11^3", (11, 11, 11), 7, 1, PRESSURE, False),
                  ("7^3", (7, 7, 7), 3, 4, PRESSURE, False))
-# phase 3d's times: (physics, box, P, Q, modes): where phase 14's and 15's
-# solves launch the generic tile (8^3, 6^3), then 24^3 and 12^3
-GENERIC_TIMED = ((PRESSURE, 8, 5, 2, ("residual", "jacobian")),
-                 (PRESSURE, 8, 3, 2, ("jacobian",)),
-                 (PRESSURE, 8, 2, 2, ("jacobian",)),
-                 ("hyperFS", 6, 7, 7, ("residual", "jacobian")),
-                 (PRESSURE, 24, 5, 2, ("residual", "jacobian")),
-                 ("hyperFS", 12, 7, 7, ("residual", "jacobian")))
+# phase 3d's gmem shapes: (label, box faces, P, Q, physics, misaligned
+# streams); one element each, streams one word off 16 bytes, and 343
+# elements on a persistent grid of 264 blocks (two an SM), whose first 79
+# take a second element
+GMEM_EDGES = (("1^3", (1, 1, 1), 12, 12, "hyperFS", False),
+              ("1^3", (1, 1, 1), 12, 12, "linElas", False),
+              ("1^3", (1, 1, 1), 12, 12, "hyperSS", False),
+              ("1^3", (1, 1, 1), 12, 12, "hyperFSIncomp", False),
+              ("1^3", (1, 1, 1), 15, 15, "hyperFS", False),
+              ("1^3", (1, 1, 1), 21, 2, PRESSURE, False),
+              ("1^3 misaligned", (1, 1, 1), 12, 12, "hyperFS", True),
+              ("7^3", (7, 7, 7), 12, 12, "hyperFS", False))
+# phase 3d's times: (physics, box, P, Q, modes, dtype): where phase 14's,
+# 15's and 19's solves launch the generic tile (8^3, 6^3; 5^3 and 6^3),
+# then 24^3 and 12^3
+F32, F64 = "float32", "float64"
+GENERIC_TIMED = ((PRESSURE, 8, 5, 2, ("residual", "jacobian"), F32),
+                 (PRESSURE, 8, 3, 2, ("jacobian",), F32),
+                 (PRESSURE, 8, 2, 2, ("jacobian",), F32),
+                 ("hyperFS", 6, 7, 7, ("residual", "jacobian"), F32),
+                 ("hyperFS", 5, 15, 15, ("residual", "jacobian"), F32),
+                 ("hyperFS", 5, 9, 9, ("jacobian",), F32),
+                 ("hyperFS", 6, 12, 12, ("residual", "jacobian"), F64),
+                 ("hyperFS", 6, 9, 9, ("jacobian",), F64),
+                 (PRESSURE, 24, 5, 2, ("residual", "jacobian"), F32),
+                 ("hyperFS", 12, 7, 7, ("residual", "jacobian"), F32))
 # phase 14: phase 12's hyperFSIncomp clamp at degree 4 with -qextra 1. Its
 # float32 solve reaches its float64 twin's answer by another Newton path
 # (more steps: float64's are indefinite at first, float32's sit near their
@@ -242,6 +281,12 @@ GENERIC_TIMED = ((PRESSURE, 8, 5, 2, ("residual", "jacobian")),
 # runs G1-G3; ROADMAP Queue 3)
 INCOMP_QEXTRA = dict(CLAMP["hyperFSIncomp"], degree=4, qextra=1)
 DEGREE6_BOX = 6                      # phase 15
+# phase 19: (degree, box, dtype) of the two high-degree solves; the first
+# through cli.main with HIGH_DEGREE_FLAGS
+HIGH_DEGREE = ((14, 5, F32), (11, 6, F64))
+HIGH_DEGREE_FLAGS = ["-problem", "hyperFS", "-test", "-degree", "14", "-nu",
+                     "0.3", "-E", "1", "-dm_plex_box_faces", "5,5,5",
+                     "-num_steps", "1"]
 EXODUS_BOX = 16                      # phase 16
 # phase 16: hyperFS degree 4, one increment, the clamped face fixed and the
 # other translated by 1% of the box (no sub-steps)
@@ -270,7 +315,7 @@ DIST_CONFIG = dict(problem="hyperFS", degree=4, nu=0.3, E=1.0,
 DIST_RTOL = 1e-5
 DIST_WORLD = 4
 DIST_TOL = 1e-5                     # |G| parity and u (float32)
-KERNEL_PATHS = {"bulk", "async", "generic", "generic_smem"}
+KERNEL_PATHS = {"bulk", "async", "generic", "generic_smem", "generic_gmem"}
 CU_SOURCE = "ceedpetscsolid_tpu_torch/csrc/fused_apply.cu"
 PROBE_SOURCE = "ceedpetscsolid_tpu_torch/csrc/gather_probe.cu"
 PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
@@ -303,12 +348,15 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def make_case(mesh, degree, dtype, device, seed, qextra=0, q1d=None):
+def make_case(mesh, degree, dtype, device, seed, qextra=0, q1d=None,
+              scale=1.0):
     """Factory, qdata and seeded inputs u, v on `device`. The amplitude
     shrinks with the element size so gradu stays ~1e-2 on every mesh, as
     with the 1e-3 inputs on the 3^3 boxes of tests/test_pallas_apply.py
     (rough inputs at O(1) strain make C nearly singular, where any change
-    of rounding order is amplified)."""
+    of rounding order is amplified); `scale` multiplies it (the gmem
+    shapes: (5 / P)^2, as the gradient of a random nodal field grows with
+    P^2)."""
     import torch
 
     from ceedpetscsolid_tpu_torch.mesh.fespace import build_fespace
@@ -318,7 +366,7 @@ def make_case(mesh, degree, dtype, device, seed, qextra=0, q1d=None):
                         dtype=dtype, device=device, q1d=q1d)
     rng = np.random.default_rng(seed)
     N = f.space.num_nodes
-    amp = 3e-3 / round(f.nelem ** (1 / 3))
+    amp = 3e-3 / round(f.nelem ** (1 / 3)) * scale
     u, v = (torch.as_tensor(rng.standard_normal((3, N)) * amp, dtype=dtype,
                             device=device) for _ in range(2))
     return f, f.compute_qdata(), u, v
@@ -354,13 +402,14 @@ def misaligned(t):
 
 
 def check_kernel(label, mesh, degree, device, phys, qextra=0,
-                 physics="hyperFS", q1d=None, shift=False, plans=None):
+                 physics="hyperFS", q1d=None, shift=False, plans=None,
+                 scale=1.0, report="float32"):
     """Kernel vs plain on one mesh/degree (P = degree + 1, Q = P + qextra,
-    or q1d), f64 and f32; returns the f32 max abs errors (residual ve,
-    J.v). A physics without a stash (linElas) must return none. With
+    or q1d), f64 and f32; returns the max abs errors (residual ve, J.v) in
+    `report`'s dtype, "float32" or "float64". A physics without a stash (linElas) must return none. With
     `shift` the kernel reads qdata and the stash from copies one word off
     16 bytes. `plans`, a list, gets the launch plan of each of the four
-    launches (fused_apply.plan)."""
+    launches (fused_apply.plan). `scale`: make_case's."""
     import torch
 
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
@@ -370,7 +419,7 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
         return misaligned(t) if shift and t is not None else t
 
     f, q, u, v = make_case(mesh, degree, torch.float64, device, seed=degree,
-                           qextra=qextra, q1d=q1d)
+                           qextra=qextra, q1d=q1d, scale=scale)
     conn, b64 = f.restr.conn, f.basis
     ve0, st0 = fa.residual_plain(u, conn, q, b64, phys, physics)
     jv0 = fa.jacobian_plain(v, conn, q, st0, b64, phys, physics)
@@ -382,13 +431,12 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
                       f"plain {st0 is None}")
     pairs = [("residual ve", ve, ve0), ("stash", st, st0), ("J.v ve", jv, jv0)]
     pairs = [(nm, a, b) for nm, a, b in pairs if b is not None]
-    for nm, a, b in pairs:
-        compare(f"{label} f64 {nm}", a, b, True)
+    e64 = {nm: compare(f"{label} f64 {nm}", a, b, True) for nm, a, b in pairs}
     if plans is not None:
         plans += [fa.plan(False, moved(q), b64, None, physics),
                   fa.plan(True, moved(q), b64, moved(st0), physics)]
     f32 = torch.float32
-    b32 = Basis3D.create(b64.P, b64.Q, "gauss", f32, device)
+    b32 = Basis3D.create(b64.P, b64.Q, "gauss", f32, device=device)
     q32 = moved(q.to(f32))
     ve, st = fa.residual(u.to(f32), conn, q32, b32, phys, physics)
     jv = fa.jacobian(v.to(f32), conn, q32, None if st0 is None else
@@ -402,6 +450,8 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
     if st0 is not None:
         compare(f"{label} f32 stash", st, st0, False)
     e_j = compare(f"{label} f32 J.v ve", jv, jv0, False)
+    if report == "float64":
+        return e64["residual ve"], e64["J.v ve"]
     return e_r, e_j
 
 
@@ -939,39 +989,68 @@ def main():
         check_kernel(f"{label} (P,Q)=({P},{Q}) {ph}", box_mesh(faces),
                      P - 1, dev, phys, physics=ph, q1d=Q, plans=gplans,
                      shift=shift)
+
+    def scale(P):
+        """make_case's amplitude factor: (5 / P)^2 above the register
+        bodies' cap (a random nodal field's gradient grows with P^2)."""
+        return (5 / P) ** 2 if P > fa.GENERIC_REG_CAP else 1.0
+
+    # the gmem body (GMEM_EDGES), f64 there and f32 where it exceeds a
+    # block too; its persistent grid must have run a ragged round
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, faces, P, Q, ph, shift in GMEM_EDGES:
+        before = len(gplans)
+        check_kernel(f"{label} (P,Q)=({P},{Q}) {ph}", box_mesh(faces),
+                     P - 1, dev, phys, physics=ph, q1d=Q, plans=gplans,
+                     shift=shift, scale=scale(P))
+        nelem = math.prod(faces)
+        for p_ in gplans[before:]:
+            if p_.body == "gmem" and not (
+                    p_.tiles == min(nelem, fa.GMEM_BLOCKS_PER_SM * sms)
+                    and p_.work > 0):
+                raise AssertionError(f"{label} gmem plan {p_}")
+    ragged = [p_ for p_ in gplans if p_.body == "gmem"
+              and p_.tiles == fa.GMEM_BLOCKS_PER_SM * sms]
+    log(f"    gmem persistent grids of {fa.GMEM_BLOCKS_PER_SM * sms} blocks "
+        f"over 343 elements: {len(ragged)} launches")
     if FAILED:
         raise AssertionError(f"kernel disagrees with plain version: {FAILED}")
     paths = dict(fa.COUNTS.by_path)
     log(f"    launches per path: {paths}")
     if set(paths) != {(m_, p_) for m_ in ("residual", "jacobian")
-                      for p_ in ("generic", "generic_smem")}:
+                      for p_ in ("generic", "generic_smem", "generic_gmem")}:
         raise AssertionError(f"phase 3d ran another path: {paths}")
+    if not ragged:
+        raise AssertionError("phase 3d ran no ragged persistent gmem grid")
     bodies = sorted({(p.body, p.copy) for p in gplans}, key=str)
     edges = sorted({(p.body, p.elems > 1, p.tiles < torch.cuda.
                      get_device_properties(dev).multi_processor_count)
                     for p in gplans}, key=str)
     log(f"    bodies and copy paths that ran: {bodies}")
     log(f"    (body, elements a tile > 1, fewer tiles than SMs): {edges}")
-    regs = [b_ for b_ in fa.GENERIC_BODIES.values() if b_ != "smem"]
-    need_bodies = {("smem", None)} | {(b_, c_) for b_ in regs
-                                      for c_ in ("bulk", "async")}
+    regs = [b_ for b_ in fa.GENERIC_BODIES.values()
+            if b_ not in ("smem", "gmem")]
+    need_bodies = {("smem", None), ("gmem", None)} | {
+        (b_, c_) for b_ in regs for c_ in ("bulk", "async")}
     need_edges = {(b_, m_, not m_) for b_ in regs for m_ in (True, False)}
     if not need_bodies <= set(bodies) or not need_edges <= set(edges):
         raise AssertionError(f"phase 3d missed a body, copy path or edge: "
                              f"{bodies}, {edges}")
     gtimes3d = {}
-    log(f"    times, float32 ({card}): call (host enqueue included) / "
-        "device alone; the solves' shapes, then 24^3 and 12^3")
-    for ph, box, P, Q, modes in GENERIC_TIMED:
+    log(f"    times ({card}): call (host enqueue included) / device "
+        "alone; the solves' shapes, then 24^3 and 12^3")
+    for ph, box, P, Q, modes, dname in GENERIC_TIMED:
         # the shape's own agreement first: its row reports this error
         errs = check_kernel(f"{box}^3 (P,Q)=({P},{Q}) {ph}",
                             box_mesh((box,) * 3), P - 1, dev, phys,
-                            physics=ph, q1d=Q)
+                            physics=ph, q1d=Q, scale=scale(P),
+                            report=dname)
         if FAILED:
             raise AssertionError("kernel disagrees with plain version: "
                                  f"{FAILED}")
-        f, q, u, v = make_case(box_mesh((box,) * 3), P - 1, torch.float32,
-                               dev, P, q1d=Q)
+        dtype = getattr(torch, dname)
+        f, q, u, v = make_case(box_mesh((box,) * 3), P - 1, dtype, dev, P,
+                               q1d=Q, scale=scale(P))
         conn, b = f.restr.conn, f.basis
         _, st = fa.residual_plain(u, conn, q, b, phys, ph)
         calls = {
@@ -987,21 +1066,22 @@ def main():
         t = {k: time_ms(fn) for k, fn in calls.items()}
         d = {k: device_ms(fn, reps=10, inner=1) for k, fn in calls.items()}
         bounds = {mode: fa.bound_ms(ph, mode, b.P, b.Q, f.nelem,
-                                    f.space.num_nodes, torch.float32)
+                                    f.space.num_nodes, dtype)
                   for mode in modes}
         plans = {mode: fa.plan(mode == "jacobian", q, b,
                                st if mode == "jacobian" else None, ph)
                  for mode in modes}
-        gtimes3d[(ph, b.P, b.Q, box)] = (t, d, bounds, plans, errs)
+        gtimes3d[(ph, b.P, b.Q, box)] = (t, d, bounds, plans, errs, dname)
         for mode in modes:
             bd, by = bounds[mode]
             p = plans[mode]
-            log(f"    {ph:24s} ({b.P},{b.Q}) {box}^3 {mode:8s} "
+            log(f"    {ph:24s} ({b.P},{b.Q}) {box}^3 {dname} {mode:8s} "
                 f"{t[mode]:.4f} / {d[mode]:.4f} ms  (plain "
                 f"{t[mode + '_plain']:.4f} / {d[mode + '_plain']:.4f} ms)  "
                 f"bound {bd:.4f} ms ({by}), share {bd / d[mode]:.3f}; "
                 f"{p.body} {p.copy}: {p.elems} element(s) x {p.tiles} "
-                f"tiles, {p.threads} threads, {p.smem} bytes")
+                f"tiles, {p.threads} threads, {p.smem} bytes, workspace "
+                f"{p.work} bytes")
         del f, q, u, v, st, calls
     torch.cuda.empty_cache()
 
@@ -1596,6 +1676,49 @@ def main():
                          if ph == "hyperFS" and mm == m)
                   for m in ("residual", "jacobian")}
 
+    # ---- 19. the high degrees: the generic tile's gmem body in solves -----
+    t19 = time.perf_counter()
+    high = dict(multigrid="logarithmic", level_quadrature="native",
+                coarse_solve="amg", by_physics=True)
+    for deg, box, dname in HIGH_DEGREE:
+        dtype, P = getattr(torch, dname), deg + 1
+        tag = f"[19] hyperFS p{deg} {box}^3 {dname}"
+        if dtype == torch.float32:
+            # through cli.main, its launches counted from 0
+            fa.COUNTS.reset()
+            rc, _, prob, info = run_cli(HIGH_DEGREE_FLAGS)
+            c19 = dict(fa.COUNTS.by_physics)
+            last_paths.clear()
+            last_paths.update(fa.COUNTS.by_path)
+            last_shapes.clear()
+            last_shapes.update(fa.COUNTS.by_shape)
+            err, energy = prob.mms_error(info.u), prob.strain_energy(info.u)
+            tag += f", cli.main {' '.join(HIGH_DEGREE_FLAGS)} -> rc {rc}"
+            # elasticity.c:806-811: -test returns 1 above 5% MMS error
+            if rc != (1 if err > 0.05 else 0):
+                raise AssertionError(f"{tag}: rc {rc} at MMS error {err}")
+        else:
+            prob, info, c19, err, energy = solve(dtype, box, degree=deg,
+                                                 **high)
+        add_generic(last_shapes)
+        paths19 = dict(last_paths)
+        report(f"{tag}, p-MG CG + AMG:", prob, info, c19, err, energy)
+        amg_report(prob, info)
+        need(tag, c19, [("hyperFS", "residual", P, P),
+                        ("hyperFS", "jacobian", P, P),
+                        ("hyperFS", "jacobian", 9, 9)])
+        if min(paths19.get((m_, "generic_gmem"), 0)
+               for m_ in ("residual", "jacobian")) < 1:
+            raise AssertionError(f"{tag} did not launch the gmem body in "
+                                 f"both modes: {paths19}")
+        if dtype == torch.float32:
+            check_twin(tag, box, info, err, energy, f32_tolerances=True,
+                       du_slack=True, degree=deg, **high)
+        main_counts.append(c19)
+        del prob, info
+        torch.cuda.empty_cache()
+    log(f"    phase 19 {time.perf_counter() - t19:.1f} s ({card})")
+
     def instances(physics, mode, generic=False):
         """'P,Q' -> launches of one physics and mode over the main paths,
         of the template instances or of the generic tile."""
@@ -1615,18 +1738,19 @@ def main():
                 "bound_share": b[0] / device_ms}
 
     def generic_rows():
-        """The generic tile's entries: one per (physics, mode, P, Q) at the
-        element count where the main paths launch it, with the launches
-        counted there; the same kernel timed on a larger mesh (24^3, 12^3),
-        which no main path launches, goes under "larger_mesh" of the entry
-        of its (physics, mode, P, Q)."""
+        """The generic tile's entries: one per (physics, mode, P, Q,
+        elements) where the main paths launch it, with the launches counted
+        there; the same kernel timed on a larger mesh (24^3, 12^3), which
+        no main path launches, goes under "larger_mesh" of the entries of
+        its (physics, mode, P, Q)."""
         rows, larger = {}, {}
-        for (ph, P, Q, box), (t, d, bd, pl, e) in gtimes3d.items():
+        for (ph, P, Q, box), (t, d, bd, pl, e, dn) in gtimes3d.items():
             for i, mode in enumerate(("residual", "jacobian")):
                 if mode not in t:
                     continue
                 entry = {
-                    "box": box, "max_abs_err": e[i], "ms": t[mode],
+                    "box": box, "dtype": dn, "max_abs_err": e[i],
+                    "ms": t[mode],
                     "plain_ms": t[mode + "_plain"], "device_ms": d[mode],
                     "plain_device_ms": d[mode + "_plain"],
                     **bound(bd[mode], d[mode]),
@@ -1634,24 +1758,31 @@ def main():
                              "elems": pl[mode].elems,
                              "tiles": pl[mode].tiles,
                              "threads": pl[mode].threads,
-                             "smem": pl[mode].smem}}
-                n_ = generic_shapes.get((ph, mode, P, Q, box ** 3), 0)
-                (rows if n_ else larger)[(ph, mode, P, Q)] = (n_, entry)
-        unrowed = {k[:4] for k in generic_shapes} - set(rows)
-        if unrowed or set(larger) - set(rows):
+                             "smem": pl[mode].smem,
+                             "workspace": pl[mode].work}}
+                key = (ph, mode, P, Q, box ** 3)
+                n_ = generic_shapes.get(key, 0)
+                if n_:
+                    rows[key] = (n_, entry)
+                else:
+                    larger[key[:4]] = entry
+        unrowed = set(generic_shapes) - set(rows)
+        beside_none = set(larger) - {k[:4] for k in rows}
+        if unrowed or beside_none:
             raise AssertionError(
                 "phase 3d timed no shape of a main-path generic launch "
                 f"{sorted(unrowed)}, or a shape beside none "
-                f"{sorted(set(larger) - set(rows))}")
+                f"{sorted(beside_none)}")
         return [
             {"name": f"fused_apply_generic_{mode}[{ph} ({P},{Q}) "
-                     f"{e['box']}^3]",
+                     f"{e['box']}^3 {e['dtype']} {e['plan']['body']}]",
              "route": "cuda", "source": CU_SOURCE, "replaces": TPU_KERNEL,
              "launches": n_, **e, "library_ms": None, "physics": ph,
              "instances": instances(ph, mode, generic=True),
-             **({"larger_mesh": larger[key][1]} if key in larger else {})}
+             **({"larger_mesh": larger[key[:4]]} if key[:4] in larger
+                else {})}
             for key, (n_, e) in rows.items()
-            for ph, mode, P, Q in (key,)]
+            for ph, mode, P, Q, _ in (key,)]
 
     # ms / plain_ms: one call, the host's enqueue included; device_ms:
     # the device's work alone; library_ms: one PyTorch call of the same

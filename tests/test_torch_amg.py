@@ -61,7 +61,7 @@ def _p1_pair(name, kind, n, seed=3):
     mask = np.zeros((3, s.num_nodes), bool)
     mask[:, s.all_boundary_nodes()] = True
     return (jA, JAssembler(s.conn, s.num_nodes, mask),
-            tA, CSRAssembler(s.conn, s.num_nodes, mask))
+            tA, CSRAssembler(s.conn, s.num_nodes, mask, device="cpu"))
 
 
 @pytest.mark.parametrize("name,kind", [("linElas", "box"),
@@ -96,7 +96,8 @@ def test_amg_from_jax_csr_matches_jax(jax_csr, top_mf, dense_n):
     A = jax_csr
     jamg = JAMG(jnp.float64, top_mf=top_mf, dense_n=dense_n)
     jamg.setup(A)
-    tamg = AMGPreconditioner(torch.float64, top_mf=top_mf, dense_n=dense_n)
+    tamg = AMGPreconditioner(torch.float64, "cpu", top_mf=top_mf,
+                             dense_n=dense_n)
     tamg.setup(interop.csr_from_jax(A.indptr, A.indices, A.data, A.shape[0]))
     sizes = [st["n"] for st in jamg._struct]
     assert [n for n, _ in tamg.level_summary()] == sizes
@@ -116,9 +117,9 @@ def test_amg_representations_agree(jax_csr):
     preconditioner to 1e-12 (tests/test_amg.py's check, on the port)."""
     A = jax_csr
     Ac = interop.csr_from_jax(A.indptr, A.indices, A.data, A.shape[0])
-    ell = AMGPreconditioner(torch.float64, dense_n=0)
+    ell = AMGPreconditioner(torch.float64, "cpu", dense_n=0)
     ell.setup(Ac)
-    fast = AMGPreconditioner(torch.float64, top_mf=True)
+    fast = AMGPreconditioner(torch.float64, "cpu", top_mf=True)
     fast.setup(Ac)
     assert any("a_dense" in lv or "p_dense" in lv for lv in fast.data["levels"])
     assert "a_val" not in fast.data["levels"][0]
@@ -138,7 +139,8 @@ def _linelas_p1(n, multigrid="none", **kw):
 
 def _assembled(prob):
     s0 = prob.spaces[0]
-    asm = CSRAssembler(s0.conn, s0.num_nodes, prob.bc_mask.numpy())
+    asm = CSRAssembler(s0.conn, s0.num_nodes, prob.bc_mask.numpy(),
+                       device="cpu")
     em = make_element_matrices(prob.model.jacobian_qf, prob.phys,
                                prob.factory.levels[0].basis, prob.dtype)
     return asm.assemble(em(prob.qdata, None))
@@ -159,7 +161,7 @@ def test_amg_reduces_cg_iterations():
     """One AMG V-cycle as CG's preconditioner at least halves the
     iterations of plain CG, to the same answer (1e-12)."""
     prob = _linelas_p1(8)
-    amg = AMGPreconditioner(prob.dtype)
+    amg = AMGPreconditioner(prob.dtype, "cpu")
     amg.setup(_assembled(prob))
     G, stash = prob._nonlinear_residual(
         torch.zeros((3, prob.fine_space.num_nodes), dtype=torch.float64),

@@ -202,16 +202,16 @@ def test_kernel_input_checks():
         fused_apply._check(u, conn, q, b, None, "hyperSS")
     assert fused_apply.is_generic("hyperFSIncomp-pressure", 3, 3)
     fused_apply._check(u, conn, q, b, st, "hyperFSIncomp-pressure")
-    # a generic tile above what a block's shared memory holds is refused,
-    # naming the bytes: (12, 12) in float64
+    # a generic tile above what a block's shared memory holds is accepted:
+    # (12, 12) in float64 runs the gmem body
     tb = TFactory(tbuild(box_mesh((1, 1, 1)), 11), dtype=torch.float64,
                   device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="needs 251,136 bytes of shared memory"):
-        fused_apply._check(torch.zeros((3, tb.space.num_nodes),
-                                       dtype=torch.float64),
-                           tb.restr.conn, tb.compute_qdata(), tb.basis,
-                           torch.zeros((9, 1, 12 ** 3), dtype=torch.float64))
+    fused_apply._check(torch.zeros((3, tb.space.num_nodes),
+                                   dtype=torch.float64),
+                       tb.restr.conn, tb.compute_qdata(), tb.basis,
+                       torch.zeros((9, 1, 12 ** 3), dtype=torch.float64))
+    assert fused_apply.launch_path(fused_apply.pointwise("hyperFS"), tb.basis,
+                                   tb.compute_qdata()) == "generic_gmem"
     tp = TFactory(tbuild(tm, 2), dtype=torch.float64, device="cpu", q1d=1)
     fused_apply._check(u, tp.restr.conn, tp.compute_qdata(), tp.basis,
                        torch.zeros((9, tp.nelem, 1), dtype=torch.float64),
@@ -271,7 +271,8 @@ def test_generic_plan_counted_by_hand(P, Q, dtype, nelem, body, elems,
                                                     smem)
     assert g.tiles == -(-nelem // elems)
     assert g.path == ("generic_smem" if body == "smem" else "generic")
-    fused_apply.require_fits("hyperFS", P, Q, dtype)
+    assert g.work == 0
+    fused_apply.require_fits("hyperFS", P, Q)
     if body != "smem":
         # a residual stages qdata's 10 planes alone
         stride = g.smem - fused_apply.generic_plan(P, Q, dtype, nelem,
@@ -289,15 +290,23 @@ def test_generic_plan_counted_by_hand(P, Q, dtype, nelem, body, elems,
     (15, 15, torch.float32, 244_800),
     (21, 2, torch.float64, 265_272),     # P > Q: ue alone is 3 P^3 words
 ])
-def test_generic_refused_above_a_block(P, Q, dtype, smem):
+def test_gmem_above_a_block(P, Q, dtype, smem):
     """A generic tile whose one element needs more shared memory than an
-    H100 block may have (232,448 bytes) is refused, naming what it needs;
-    P and Q outside the generic tile's range are refused too."""
-    with pytest.raises(NotImplementedError,
-                       match=f"needs {smem:,} bytes of shared memory"):
-        fused_apply.require_fits("hyperFSIncomp-pressure", P, Q, dtype)
+    H100 block may have (232,448 bytes; `smem`: the smem body's bytes,
+    2 Q P + max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3) words) is accepted
+    and planned on the gmem body, B and D alone in shared memory; P and Q
+    outside the generic tile's range are refused."""
+    w = dtype.itemsize
+    assert smem == w * (2 * Q * P + max(3 * P ** 3, 9 * P * Q * Q)
+                        + max(6 * P * P * Q, 9 * Q ** 3))
+    assert smem > fused_apply.H100_SMEM_PER_BLOCK
+    fused_apply.require_fits("hyperFSIncomp-pressure", P, Q)
+    fused_apply.require_fits("hyperFS", P, Q)
+    g = fused_apply.generic_plan(P, Q, dtype, 1)
+    assert (g.path, g.body, g.elems, g.smem) == ("generic_gmem", "gmem", 1,
+                                                 w * 2 * Q * P)
     with pytest.raises(NotImplementedError, match="2 <= P <= 64"):
-        fused_apply.require_fits("hyperFS", 65, Q, dtype)
+        fused_apply.require_fits("hyperFS", 65, Q)
     # a template instance is never the generic tile's
     assert not fused_apply.is_generic("hyperFS", 5, 6)
     assert not fused_apply.is_generic("hyperFSIncomp-pressure", 6, 1)

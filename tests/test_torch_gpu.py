@@ -64,7 +64,7 @@ def test_kernel_matches_plain(cuda, kind, degree, qextra):
     for got, ref in ((ve, ve0), (st, st0), (jv, jv0)):
         assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
     f32 = torch.float32
-    b32 = Basis3D.create(b.P, b.Q, "gauss", f32, cuda)
+    b32 = Basis3D.create(b.P, b.Q, "gauss", f32, device=cuda)
     ve, st = fa.residual(u.to(f32), conn, q.to(f32), b32, PHYS)
     jv = fa.jacobian(v.to(f32), conn, q.to(f32), st0.to(f32), b32, PHYS)
     for got, ref in ((ve, ve0), (st, st0), (jv, jv0)):
@@ -85,7 +85,7 @@ def _check_physics(f, q, u, v, physics, device):
     for got, ref in pairs:
         assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
     f32 = torch.float32
-    b32 = Basis3D.create(b.P, b.Q, "gauss", f32, device)
+    b32 = Basis3D.create(b.P, b.Q, "gauss", f32, device=device)
     st32 = None if st0 is None else st0.to(f32)
     ve, st = fa.residual(u.to(f32), conn, q.to(f32), b32, PHYS, physics)
     jv = fa.jacobian(v.to(f32), conn, q.to(f32), st32, b32, PHYS, physics)
@@ -164,7 +164,7 @@ def test_tile_edges_match_plain(cuda, physics, faces, degree, dtype, shift,
     q, conn, b = f.compute_qdata(), f.restr.conn, f.basis
     ve0, st0 = fa.residual_plain(u, conn, q, b, PHYS, physics)
     jv0 = fa.jacobian_plain(v, conn, q, st0, b, PHYS, physics)
-    bt = Basis3D.create(b.P, b.Q, "gauss", dtype, cuda)
+    bt = Basis3D.create(b.P, b.Q, "gauss", dtype, device=cuda)
     qt = q.to(dtype)
     st_in = None if st0 is None else st0.to(dtype)
     if shift:
@@ -284,7 +284,7 @@ def test_generic_matches_plain(cuda, faces, degree, kind, Q, physics):
                                 19 if jac and pw.stash else 10)
             assert (p.path, p.body, p.elems, p.threads, p.smem, p.tiles) \
                 == (g.path, g.body, g.elems, g.threads, g.smem, g.tiles)
-            assert (p.copy is None) == (g.path == "generic_smem")
+            assert (p.copy is None) == (g.path != "generic")
     path = fa.generic_plan(P, Q, torch.float64, f.nelem, sms).path
     fa.COUNTS.reset()
     _check_physics(f, q, u, v, physics, cuda)
@@ -311,36 +311,81 @@ def test_generic_configurations_construct(cuda):
     Config(problem="hyperFS", degree=10, device=cuda, dtype=torch.float64)
 
 
-def test_generic_refused_above_a_block(cuda):
-    """(P, Q) = (11, 11) fits a block in float64 (193,600 bytes) and runs;
-    (12, 12) in float64 and (15, 15) in float32 need more shared memory
-    than an H100 block may have, and Config and the wrapper refuse them,
-    naming the bytes. The kernel's own refusal agrees at (12, 12)."""
-    f = OperatorFactory(build_fespace(box_mesh((1, 1, 1)), 10),
-                        dtype=torch.float64, device=cuda)
-    rng = np.random.default_rng(11)
-    u = torch.as_tensor(rng.standard_normal((3, f.space.num_nodes)) * 1e-3,
-                        device=cuda)
-    q = f.compute_qdata()
-    ve, st = fa.residual(u, f.restr.conn, q, f.basis, PHYS)
-    ve0, st0 = fa.residual_plain(u, f.restr.conn, q, f.basis, PHYS)
-    assert float((ve - ve0).abs().max() / ve0.abs().max()) <= 1e-12
-    with pytest.raises(NotImplementedError,
-                       match="needs 251,136 bytes of shared memory"):
-        Config(problem="hyperFS", degree=11, device=cuda,
-               dtype=torch.float64)
-    with pytest.raises(NotImplementedError,
-                       match="needs 244,800 bytes of shared memory"):
-        Config(problem="hyperFS", degree=14, device=cuda)
-    f12 = OperatorFactory(build_fespace(box_mesh((1, 1, 1)), 11),
-                          dtype=torch.float64, device=cuda)
-    u12 = torch.zeros((3, f12.space.num_nodes), dtype=torch.float64,
-                      device=cuda)
-    ve = torch.empty((3, 1, 12 ** 3), dtype=torch.float64, device=cuda)
-    st = torch.empty((9, 1, 12 ** 3), dtype=torch.float64, device=cuda)
-    with pytest.raises(RuntimeError, match="more shared memory"):
-        fa._launch(False, u12, f12.restr.conn, f12.compute_qdata(),
-                   f12.basis, st, ve, PHYS, fa.pointwise("hyperFS"))
+# the shapes on either side of the block limit: (physics, box faces,
+# degree, Q, dtype, body). The smem body's largest one-element tiles,
+# (11, 11) float64 (193,600 bytes) and (14, 14) float32 (199,136 bytes);
+# the gmem body's shapes, one element each, and 343 elements on a
+# persistent grid of 264 blocks (two an SM), whose first 79 blocks take a
+# second element
+BLOCK_LIMIT_CASES = (
+    ("hyperFS", (1, 1, 1), 10, 11, torch.float64, "smem"),
+    ("hyperFS", (1, 1, 1), 13, 14, torch.float32, "smem"),
+    ("hyperFS", (1, 1, 1), 11, 12, torch.float64, "gmem"),
+    ("hyperFS", (7, 7, 7), 11, 12, torch.float64, "gmem"),
+    ("hyperFS", (1, 1, 1), 14, 15, torch.float32, "gmem"),
+    ("linElas", (1, 1, 1), 14, 15, torch.float32, "gmem"),
+    ("hyperFSIncomp-pressure", (1, 1, 1), 20, 2, torch.float64, "gmem"))
+
+
+def test_gmem_matches_plain_above_a_block(cuda):
+    """The generic tile's gmem body, where one element's buffers need more
+    shared memory than an H100 block may have ((12, 12) and the pressure
+    term's (21, 2) in float64, (15, 15) in float32), and the smem body just
+    below that limit ((11, 11) float64, (14, 14) float32), against the
+    plain float64 version, residual (with the stash) and J.v: float64 to
+    1e-12 of max|ref|, float32 at the rule of test_kernel_matches_plain.
+    The input amplitude shrinks with P^2, which the gradient of a random
+    nodal field grows with, so that gradu stays ~1e-2 (at O(1) strain C is
+    nearly singular and float32 rounding is amplified). Its plan in both
+    modes is generic_plan's, with the workspace the wrapper allocates; the
+    launches count under the body's path. Config takes degree 11 in
+    float64 and degree 14 in float32 on CUDA."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for physics, faces, degree, Q, dtype, body in BLOCK_LIMIT_CASES:
+        f = OperatorFactory(build_fespace(box_mesh(faces), degree),
+                            dtype=torch.float64, device=cuda, q1d=Q)
+        P = f.basis.P
+        rng = np.random.default_rng(degree)
+        amp = 3e-3 / faces[0] * (5 / P) ** 2
+        u, v = (torch.as_tensor(rng.standard_normal((3, f.space.num_nodes))
+                                * amp, device=cuda) for _ in range(2))
+        q64 = f.compute_qdata()
+        pw = fa.pointwise(physics)
+        conn = f.restr.conn
+        ve0, st0 = fa.residual_plain(u, conn, q64, f.basis, PHYS, pw)
+        jv0 = fa.jacobian_plain(v, conn, q64, st0, f.basis, PHYS, pw)
+        b = Basis3D.create(P, Q, "gauss", dtype, device=cuda)
+        q = q64.to(dtype)
+        st_in = None if st0 is None else st0.to(dtype)
+        path = f"generic_{body}"
+        for jac in (False, True):
+            p = fa.plan(jac, q, b, st_in if jac else None, pw)
+            g = fa.generic_plan(P, Q, dtype, f.nelem, sms,
+                                19 if jac and pw.stash else 10)
+            assert (p.path, p.body, p.elems, p.threads, p.smem, p.tiles,
+                    p.work, p.copy) == (path, body, g.elems, 256, g.smem,
+                                        g.tiles, g.work, None)
+            assert g.path == path and g.elems == 1
+            if body == "gmem":
+                assert g.tiles == min(f.nelem, fa.GMEM_BLOCKS_PER_SM * sms)
+            else:
+                assert g.work == 0 and g.smem <= fa.H100_SMEM_PER_BLOCK
+        fa.COUNTS.reset()
+        ve, st = fa.residual(u.to(dtype), conn, q, b, PHYS, pw)
+        jv = fa.jacobian(v.to(dtype), conn, q, st_in, b, PHYS, pw)
+        torch.cuda.synchronize()
+        assert fa.COUNTS.by_path == {("residual", path): 1,
+                                     ("jacobian", path): 1}
+        pairs = [(ve, ve0), (jv, jv0)] + ([(st, st0)] if pw.stash else [])
+        for got, ref in pairs:
+            err = (got.double() - ref).abs()
+            mx = ref.abs().max()
+            if dtype == torch.float64:
+                assert float(err.max() / mx) <= 1e-12
+            else:
+                assert bool((err <= 2e-5 * ref.abs() + 1e-6 * mx).all())
+    Config(problem="hyperFS", degree=11, device=cuda, dtype=torch.float64)
+    Config(problem="hyperFS", degree=14, device=cuda)
 
 
 def test_solve_on_gpu_matches_cpu(cuda):
@@ -629,7 +674,8 @@ def test_resume_on_gpu_matches_unbroken(cuda):
 # -- the distributed driver (parallel/) on the card --------------------------
 DIST = dict(problem="hyperFS", degree=2, nu=0.3, E=1.0, test_mode=True,
             box_faces=(3, 3, 3), multigrid="logarithmic", num_increments=2)
-KERNEL_PATHS = {"bulk", "async", "generic", "generic_smem"}
+KERNEL_PATHS = {"bulk", "async", "generic", "generic_smem",
+                "generic_gmem"}
 
 
 def test_dist_nccl_world1_residual_matches_serial_kernel(cuda, tmp_path):
