@@ -18,10 +18,10 @@
 // coarse level at the fine level's rule or a -qextra run; P > Q = 1 is the
 // pressure term at one point per element on every level. Every other
 // (physics, P, Q) runs on the generic tile, whose P and Q are run-time
-// arguments (generic_reg_kernel up to P, Q = 8, generic_tile_kernel above,
-// generic_gmem_kernel where one element's buffers exceed a block's shared
-// memory): the pressure term at Q = 1 + qextra > 1 and everything above
-// Q = 6, up to P, Q = 64.
+// arguments (generic_reg_kernel up to P, Q = 8, generic_cluster_kernel
+// above, an element a thread-block cluster, and generic_gmem_kernel where
+// no cluster of 8 CTAs holds an element): the pressure term at
+// Q = 1 + qextra > 1 and everything above Q = 6, up to P, Q = 64.
 // Per element: gather the 3 x P^3 nodal values through `conn` (orientation is
 // already resolved by the FE-space numbering, so the TPU kernel's class rows,
 // orientation masks and selection GEMMs have no counterpart), contract to the
@@ -93,12 +93,16 @@
 // cancellation-free det(C) - 1 and the log1p series are kept as written,
 // not replaced by log1p/log.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <mutex>
 
 namespace cps {
+
+namespace cg = cooperative_groups;
 
 template <typename T>
 __device__ __forceinline__ T log1p_series(T x) {
@@ -1456,70 +1460,44 @@ warp_tile_kernel(const T* __restrict__ u, long long N,
 // at Q = 1 + qextra > 1 (P > Q on every p-multigrid level, which all share
 // that rule) and every instance above Q = 6 (degree >= 6, or degree 5 with
 // -qextra), in both modes and both types. Up to P, Q = kGenericRegCap the
-// register bodies below run it (generic_reg_kernel); above, this
-// shared-memory body (generic_tile_kernel, "smem"): one instance a
-// (physics, mode, type), 20 kernels, and as many of the global-memory
-// body.
-// A block of kGenericThreads threads takes a tile of E elements (generic_
-// plan: about a thread a quadrature point, within kGenericBudget of shared
-// memory; one element once Q^3 >= 256). Every phase gives a thread one
-// output value at a time, looping over the contracted direction in shared
-// memory, with a block barrier between phases. qdata and the stash are read
-// (and the stash written) per point straight from global memory, where
-// consecutive threads take consecutive points of the tile, so those
-// accesses coalesce; a tile's shared memory is then B, D and two buffers
-// an element, 4 (f32) or 8 (f64) bytes times
-//   2 Q P + E (max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3)),
-// 72.8 KB in f32 and 145.6 KB in f64 at (P, Q) = (10, 10). An apply whose
-// one-element tile needs more than a block may have (232,448 bytes on the
-// H100; the first are (12, 12) in f64, (15, 15) in f32 and the pressure
-// term's (21, 2) in f64) runs the global-memory body below
-// (generic_gmem_kernel, "gmem") instead, on the same phases.
-// What bounds it on the card: as the template instances, memory on paper;
-// in practice its shared-memory traffic (no register rows: every operand of
-// every contraction is a shared load) and its block barriers: no register
-// rows, no staged streams, no asynchronous copies (PERF.md §6 has its
-// times at the solves' shapes, where the register bodies now run).
-// Per element (words, x fastest):
+// register bodies below run it (generic_reg_kernel); above, the cluster
+// body (generic_cluster_kernel, "cluster": an element in the shared memory
+// of a thread-block cluster of up to kClusterMax CTAs) and, where no such
+// cluster holds an element, the global-memory body (generic_gmem_kernel,
+// "gmem"): one instance a (physics, mode, type) each, 20 kernels a body.
+// The gmem body runs generic_tile: a block of kGenericThreads threads takes
+// one element, every phase gives a thread one output value at a time,
+// looping over the contracted direction, with a block barrier between
+// phases; qdata and the stash are read (and the stash written) per point
+// straight from global memory, consecutive threads on consecutive points.
+// Its buffers, an element, in words (x fastest):
 //   buffer A: ue [c][pz][py][px] -> t2[3] [c][qy][qx][pz]
 //             -> adjoint t2[3] [c][pz][qx][qy]
 //   buffer B: t1[2] [c][pz][qx][py] -> dv[9] [qz][qy][qx]
 //             -> adjoint t1[2] [c][pz][py][qx]
+// max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3) words (gmem_words).
 // ---------------------------------------------------------------------------
 constexpr int kGenericThreads = 256;
-constexpr int kGenericMaxElems = 64;
 constexpr size_t kGenericBudget = 64 * 1024;  // bytes a block when E > 1
 constexpr int kGenericMaxPQ = 64;             // a bound on P, Q for the plan
 
-struct GenericPlan {
-  int elems;    // E, elements a tile (one tile a block)
-  int a_words;  // buffer A an element
-  int b_words;  // buffer B an element
-  size_t smem;  // dynamic shared memory, bytes
-};
-
-__host__ __device__ constexpr GenericPlan generic_plan(int P, int Q,
-                                                       int tsize) {
-  const int a = cmax(3 * P * P * P, 9 * P * Q * Q);
-  const int b = cmax(6 * P * P * Q, 9 * Q * Q * Q);
-  const int bd = 2 * Q * P;
-  int E = cmax(1, cmin(kGenericMaxElems, kGenericThreads / (Q * Q * Q)));
-  while (E > 1 && (size_t)tsize * (bd + (size_t)E * (a + b)) > kGenericBudget)
-    --E;
-  return GenericPlan{E, a, b, (size_t)tsize * (bd + (size_t)E * (a + b))};
+// Buffer A, and A and B, of one element of the gmem body, in words.
+__host__ __device__ constexpr int gmem_a_words(int P, int Q) {
+  return cmax(3 * P * P * P, 9 * P * Q * Q);
+}
+__host__ __device__ constexpr int gmem_words(int P, int Q) {
+  return gmem_a_words(P, Q) + cmax(6 * P * P * Q, 9 * Q * Q * Q);
 }
 
-// The phases of one tile of the shared-memory body, or of one element of
-// the global-memory body: ne elements from e0, element e's buffers A and B
-// at bufA + e * A and bufB + e * B1 (shared memory, or a block's slice of
-// the global workspace). sB, sD: B and D in shared memory, whose loads the
-// caller issues first; the barrier after the gather completes them. No
-// barrier at the end: a next element's gather writes only buffer A, which
-// the adjoint x phase no longer reads.
+// The phases of the gmem body on element e0, its buffers A and B at bufA
+// and bufB (a block's slice of the global workspace). sB, sD: B and D in
+// shared memory, whose loads the caller issues first; the barrier after
+// the gather completes them. No barrier at the end: a next element's
+// gather writes only buffer A, which the adjoint x phase no longer reads.
 template <int PH, bool JAC, typename T>
 __device__ __forceinline__ void generic_tile(
-    int P, int Q, int A, int B1, int e0, int ne, const T* sB, const T* sD,
-    T* bufA, T* bufB, const T* __restrict__ u, long long N,
+    int P, int Q, int e0, const T* sB, const T* sD, T* bufA, T* bufB,
+    const T* __restrict__ u, long long N,
     const long long* __restrict__ conn, int nelem,
     const T* __restrict__ qdata, T* __restrict__ stash, T* __restrict__ ve,
     T a, T b) {
@@ -1530,26 +1508,23 @@ __device__ __forceinline__ void generic_tile(
   const int tid = threadIdx.x;
   const int NT = blockDim.x;
   const size_t plane = (size_t)nelem * Q3;
-  const size_t off0 = (size_t)e0 * Q3;  // the tile's first point in a plane
+  const size_t off0 = (size_t)e0 * Q3;  // the element's first point
 
   // ---- the nodal gather into ue ----
   const long long* ce = conn + (size_t)e0 * P3;
-  for (int i = tid; i < ne * P3; i += NT) {
+  for (int i = tid; i < P3; i += NT) {
     const long long node = ce[i];
-    const int e = i / P3;
-    T* ue = bufA + e * A + (i - e * P3);
+    T* ue = bufA + i;
     for (int c = 0; c < 3; ++c) ue[c * P3] = u[c * N + node];
   }
   __syncthreads();
 
   // ---- forward x: t1[0] = B_x u, t1[1] = D_x u at (c, pz, qx, py) ----
-  for (int i = tid; i < ne * T1; i += NT) {
-    const int e = i / T1;
-    const int j = i - e * T1;  // ((c * P + pz) * Q + qx) * P + py
+  for (int j = tid; j < T1; j += NT) {  // ((c * P + pz) * Q + qx) * P + py
     const int py = j % P;
     const int qx = (j / P) % Q;
     const int rp = j / (P * Q);  // c * P + pz
-    const T* x = bufA + e * A + (rp * P + py) * P;
+    const T* x = bufA + (rp * P + py) * P;
     const T* bq = sB + qx * P;
     const T* dq = sD + qx * P;
     T bs = T(0), ds = T(0);
@@ -1557,7 +1532,7 @@ __device__ __forceinline__ void generic_tile(
       bs += bq[px] * x[px];
       ds += dq[px] * x[px];
     }
-    T* o = bufB + e * B1 + j;
+    T* o = bufB + j;
     o[0] = bs;
     o[T1] = ds;
   }
@@ -1565,14 +1540,12 @@ __device__ __forceinline__ void generic_tile(
 
   // ---- forward y: t2[0] = B_y D_x u, t2[1] = D_y B_x u, t2[2] = B_y B_x u
   // at (c, qy, qx, pz) ----
-  for (int i = tid; i < ne * T2; i += NT) {
-    const int e = i / T2;
-    const int j = i - e * T2;  // ((c * Q + qy) * Q + qx) * P + pz
+  for (int j = tid; j < T2; j += NT) {  // ((c * Q + qy) * Q + qx) * P + pz
     const int pz = j % P;
     const int qx = (j / P) % Q;
     const int qy = (j / (P * Q)) % Q;
     const int c = j / (P * Q2);
-    const T* x0 = bufB + e * B1 + (((c * P + pz) * Q + qx) * P);
+    const T* x0 = bufB + (((c * P + pz) * Q + qx) * P);
     const T* x1 = x0 + T1;
     const T* bq = sB + qy * P;
     const T* dq = sD + qy * P;
@@ -1582,25 +1555,23 @@ __device__ __forceinline__ void generic_tile(
       db += dq[py] * x0[py];
       bb += bq[py] * x0[py];
     }
-    T* o = bufA + e * A + j;
+    T* o = bufA + j;
     o[0] = bd;
     o[T2] = db;
     o[2 * T2] = bb;
   }
   __syncthreads();
 
-  // ---- forward z + pointwise physics, one quadrature point of the tile a
-  // thread at a time (pt = e * Q^3 + q, q = (qz * Q + qy) * Q + qx) ----
-  for (int pt = tid; pt < ne * Q3; pt += NT) {
-    const int e = pt / Q3;
-    const int q = pt - e * Q3;
+  // ---- forward z + pointwise physics, one quadrature point a thread at a
+  // time (q = (qz * Q + qy) * Q + qx) ----
+  for (int q = tid; q < Q3; q += NT) {
     const int qz = q / Q2;
     const int qxy = q - qz * Q2;  // qy * Q + qx
     const T* bz = sB + qz * P;
     const T* dz = sD + qz * P;
     T du[9];
     for (int c = 0; c < 3; ++c) {
-      const T* r0 = bufA + e * A + (c * Q2 + qxy) * P;
+      const T* r0 = bufA + (c * Q2 + qxy) * P;
       const T* r1 = r0 + T2;
       const T* r2 = r0 + 2 * T2;
       T a0 = T(0), a1 = T(0), a2 = T(0);
@@ -1613,7 +1584,7 @@ __device__ __forceinline__ void generic_tile(
       du[3 * c + 1] = a1;
       du[3 * c + 2] = a2;
     }
-    const size_t off = off0 + pt;
+    const size_t off = off0 + q;
     const T wdetJ = qdata[off];
     T X[9];
 #pragma unroll
@@ -1632,7 +1603,7 @@ __device__ __forceinline__ void generic_tile(
         for (int k = 0; k < 9; ++k) stash[k * plane + off] = g[k];
       }
     }
-    T* o = bufB + e * B1 + q;
+    T* o = bufB + q;
 #pragma unroll
     for (int k = 0; k < 9; ++k) o[k * Q3] = dv[k];
   }
@@ -1640,14 +1611,12 @@ __device__ __forceinline__ void generic_tile(
 
   // ---- adjoint z: adjoint t2[0] = B_z^T dv[3c], t2[1] = B_z^T dv[3c+1],
   // t2[2] = D_z^T dv[3c+2] at (c, pz, qx, qy) ----
-  for (int i = tid; i < ne * T2; i += NT) {
-    const int e = i / T2;
-    const int j = i - e * T2;  // ((c * P + pz) * Q + qx) * Q + qy
+  for (int j = tid; j < T2; j += NT) {  // ((c * P + pz) * Q + qx) * Q + qy
     const int qy = j % Q;
     const int qx = (j / Q) % Q;
     const int pz = (j / Q2) % P;
     const int c = j / (Q2 * P);
-    const T* d = bufB + e * B1 + 3 * c * Q3 + qy * Q + qx;
+    const T* d = bufB + 3 * c * Q3 + qy * Q + qx;
     T a0 = T(0), a1 = T(0), a2 = T(0);
     for (int qz = 0; qz < Q; ++qz) {
       const T bt = sB[qz * P + pz], dt = sD[qz * P + pz];
@@ -1655,7 +1624,7 @@ __device__ __forceinline__ void generic_tile(
       a1 += bt * d[Q3 + qz * Q2];
       a2 += dt * d[2 * Q3 + qz * Q2];
     }
-    T* o = bufA + e * A + j;
+    T* o = bufA + j;
     o[0] = a0;
     o[T2] = a1;
     o[2 * T2] = a2;
@@ -1664,13 +1633,11 @@ __device__ __forceinline__ void generic_tile(
 
   // ---- adjoint y: adjoint t1[0] = B_y^T t2[0], t1[1] = D_y^T t2[1] +
   // B_y^T t2[2] at (c, pz, py, qx) ----
-  for (int i = tid; i < ne * T1; i += NT) {
-    const int e = i / T1;
-    const int j = i - e * T1;  // ((c * P + pz) * P + py) * Q + qx
+  for (int j = tid; j < T1; j += NT) {  // ((c * P + pz) * P + py) * Q + qx
     const int qx = j % Q;
     const int py = (j / Q) % P;
     const int rp = j / (Q * P);  // c * P + pz
-    const T* y0 = bufA + e * A + (rp * Q + qx) * Q;
+    const T* y0 = bufA + (rp * Q + qx) * Q;
     const T* y1 = y0 + T2;
     const T* y2 = y0 + 2 * T2;
     T bx = T(0), bb = T(0);
@@ -1679,7 +1646,7 @@ __device__ __forceinline__ void generic_tile(
       bx += bt * y0[qy];
       bb += dt * y1[qy] + bt * y2[qy];
     }
-    T* o = bufB + e * B1 + j;
+    T* o = bufB + j;
     o[0] = bx;
     o[T1] = bb;
   }
@@ -1687,18 +1654,16 @@ __device__ __forceinline__ void generic_tile(
 
   // ---- adjoint x: ve = D_x^T t1[0] + B_x^T t1[1] at (c, e, pz, py, px),
   // written straight to global memory ----
-  for (int i = tid; i < 3 * ne * P3; i += NT) {
-    const int c = i / (ne * P3);
-    const int r = i - c * (ne * P3);  // e * P^3 + (pz * P + py) * P + px
-    const int e = r / P3;
-    const int p = r - e * P3;
+  for (int i = tid; i < 3 * P3; i += NT) {
+    const int c = i / P3;
+    const int p = i - c * P3;  // (pz * P + py) * P + px
     const int px = p % P;
-    const T* x0 = bufB + e * B1 + (c * P2 + p / P) * Q;
+    const T* x0 = bufB + (c * P2 + p / P) * Q;
     const T* x1 = x0 + T1;
     T acc = T(0);
     for (int qx = 0; qx < Q; ++qx)
       acc += sD[qx * P + px] * x0[qx] + sB[qx * P + px] * x1[qx];
-    ve[((size_t)c * nelem + e0) * P3 + r] = acc;
+    ve[((size_t)c * nelem + e0) * P3 + p] = acc;
   }
 }
 
@@ -1712,29 +1677,11 @@ __device__ __forceinline__ void load_bd(int P, int Q, const T* __restrict__ Bg,
   }
 }
 
-template <int PH, bool JAC, typename T>
-__global__ void __launch_bounds__(kGenericThreads)
-generic_tile_kernel(int P, int Q, int E, int A, int B1,
-                    const T* __restrict__ u, long long N,
-                    const long long* __restrict__ conn, int nelem,
-                    const T* __restrict__ qdata, const T* __restrict__ Bg,
-                    const T* __restrict__ Dg, T* __restrict__ stash,
-                    T* __restrict__ ve, T a, T b) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sB = reinterpret_cast<T*>(smem);  // B[q][p] at q * P + p, then D
-  T* bufA = sB + 2 * Q * P;            // element e at e * A
-  load_bd(P, Q, Bg, Dg, sB);
-  const int e0 = blockIdx.x * E;
-  generic_tile<PH, JAC, T>(P, Q, A, B1, e0, min(E, nelem - e0), sB,
-                           sB + Q * P, bufA, bufA + E * A, u, N, conn, nelem,
-                           qdata, stash, ve, a, b);
-}
-
 // ---------------------------------------------------------------------------
 // The global-memory body (generic_gmem_kernel, "gmem"): every generic
-// (physics, P, Q) whose one-element tile needs more shared memory than a
-// block may opt in to. It runs generic_tile, the shared-memory body's
-// phases, one element at a time, with buffers A and B in the block's slice
+// (physics, P, Q) above kGenericRegCap whose element no cluster of
+// kClusterMax CTAs holds in shared memory. It runs generic_tile, one
+// element at a time, with buffers A and B in the block's slice
 // of a global-memory workspace (A + B words a block; the wrapper allocates
 // the workspace through torch's caching allocator); B and D stay in shared
 // memory (2 Q P words). The grid is persistent: min(nelem,
@@ -1744,9 +1691,9 @@ generic_tile_kernel(int P, int Q, int E, int A, int B1,
 // operand is a load from the workspace (an element's buffers are 243 KB at
 // (15, 15) f32 and 249 KB at (12, 12) f64, more than an SM's L1, so most
 // come from L2), and at the solves' 125-216 elements about one block of
-// 256 threads runs an SM. A design that keeps an element on chip (a
-// cluster of CTAs splitting it by z-slab over distributed shared memory,
-// or registers holding each thread's points) is the next step.
+// 256 threads runs an SM. It runs only where no cluster of kClusterMax
+// CTAs holds an element (the cluster body below): P = Q >= 23 in f64,
+// >= 29 in f32.
 // ---------------------------------------------------------------------------
 constexpr int kGmemBlocksPerSm = 2;
 
@@ -1763,9 +1710,440 @@ generic_gmem_kernel(int P, int Q, int A, int B1, T* work,
   load_bd(P, Q, Bg, Dg, sB);
   T* bufA = work + (size_t)blockIdx.x * (A + B1);
   for (int e = blockIdx.x; e < nelem; e += gridDim.x)
-    generic_tile<PH, JAC, T>(P, Q, A, B1, e, 1, sB, sB + Q * P, bufA,
-                             bufA + A, u, N, conn, nelem, qdata, stash, ve, a,
-                             b);
+    generic_tile<PH, JAC, T>(P, Q, e, sB, sB + Q * P, bufA, bufA + A, u, N,
+                             conn, nelem, qdata, stash, ve, a, b);
+}
+
+// ---------------------------------------------------------------------------
+// The cluster body (generic_cluster_kernel, "cluster"): every generic
+// (physics, P, Q) above kGenericRegCap whose element a thread-block cluster
+// of at most kClusterMax CTAs holds in shared memory. It replaces, as every
+// generic body does, ceedpetscsolid_tpu/ops/pallas_apply.py::_apply_kernel
+// (residual with the stash out, J.v with it in; all five physics, f32 and
+// f64, P and Q at run time).
+// What bounds it on the card: memory, on paper (ops/fused_apply.bound_ms:
+// qdata, the stash, u, conn and ve once each; 0.0134 ms for hyperFS J.v at
+// (15, 15) f32 on 5^3, 0.0227 ms at (12, 12) f64 on 6^3). What held the
+// bodies it replaces far below that: the gmem body kept an element's
+// buffers (243-249 KB) in a global workspace, so every contraction operand
+// was an L2 load, with one 256-thread block an element on 125-216 of 132
+// SMs; the shared-memory body (one element a 256-thread block, since
+// removed) fit an element into one block only up to (11, 11) f64 and
+// (14, 14) f32, at one or two blocks an SM, every operand a shared load.
+// Design: one cluster of k CTAs (kGenericThreads threads each) an element,
+// its buffers split between the CTAs' shared memory, so no operand leaves
+// the chip. k comes from the plan (cluster_size): at least the fewest CTAs
+// whose share fits a block's opt-in shared memory, more while the element
+// count leaves the SMs short of CTAs, or a CTA too big to share its SM.
+// CTA r owns
+//   the pz-slabs [r nzc, r nzc + nzc) (nzc = ceil(P / k)): the gather,
+//       forward x and y, adjoint y and x, which read and write one slab;
+//   the (qy, qx) columns [r ncc, r ncc + ncc) (ncc = ceil(Q^2 / k)):
+//       forward z, the physics and adjoint z, which need a whole column
+//       and all three components at a point. The column owner's points of
+//       one qz are consecutive in qdata and the stash, so their per-point
+//       streams are read coalesced, straight from global memory.
+// Two exchanges move the data between the two owners, through
+// distributed shared memory (map_shared_rank): forward y stores its t2
+// values into the column owners' region A, adjoint z its adjoint t2 into
+// the slab owners' region A; each moves 9 Q^2 P words an element, (k-1)/k
+// of them remote. Per CTA, region A: t2 of its columns [3][c][pz][col]
+// (9 P ncc), then adjoint t2 of its slabs [3][c][zl][qy qx] (9 nzc Q^2);
+// region B: ue [c][zl][py][px] and t1 [2][c][zl][py][qx] (3 nzc P^2 +
+// 6 nzc P Q), then dv [9][qz][col] (9 Q ncc), then adjoint t1
+// [2][c][zl][py][qx]. A and B alias phase to phase as the gmem body's two
+// buffers do, so a cluster holds 18 P^3 words at P = Q, as one block would;
+// the price is a third cluster barrier: peers store into region A
+// at any time between two barriers, so it may hold only the data of one
+// exchange: the barriers fall after forward y, after the physics (the t2
+// in region A is read) and after adjoint z. Every CTA signals its start
+// before its gather and waits for its peers' before its first remote
+// store. Inside a CTA a contraction phase gives a thread the three
+// components of a line position and two positions half the free direction
+// apart (a row of B or D loaded once serves three lines, a line loaded
+// once serves two rows), with a block barrier between local phases;
+// forward z writes du into region B and the physics, one point a thread,
+// reads it back there, so that the physics alone holds the registers it
+// needs. The layouts put consecutive threads on consecutive words of a row
+// and broadcast B or D (B^T and D^T held transposed for forward x), so a
+// warp's shared loads meet no bank conflict. Registers: __launch_bounds__
+// asks for 3 CTAs an SM in f32 (80 registers a thread) and 2 in f64 (128);
+// at the first design's 151 (hyperFS J.v f64) one CTA ran an SM. One
+// element a cluster, nelem clusters: no CTA touches a peer after the last
+// barrier, so each may exit at its end.
+// ---------------------------------------------------------------------------
+constexpr int kClusterMax = 8;  // CTAs a cluster: the portable limit
+// CTAs an SM that __launch_bounds__ asks registers for: in f32 3 x 256
+// threads, at most 85 registers a thread; in f64 2, at most 128
+__host__ __device__ constexpr int cluster_min_ctas(int tsize) {
+  return tsize == 4 ? 3 : 2;
+}
+// the most shared memory a CTA may take for two to share an SM
+constexpr size_t kClusterPairSmem = (kSmSmem - 2 * kBlockReserve) / 2;
+
+struct ClusterPlan {
+  int nzc;      // pz-slabs a CTA
+  int ncc;      // (qy, qx) columns a CTA
+  int a_words;  // region A a CTA
+  int b_words;  // region B a CTA
+  size_t smem;  // dynamic shared memory a CTA, bytes: B, D, B^T, D^T, A, B
+};
+
+__host__ __device__ constexpr ClusterPlan cluster_plan(int P, int Q,
+                                                       int tsize, int k) {
+  const int nzc = (P + k - 1) / k, ncc = (Q * Q + k - 1) / k;
+  const int a = cmax(9 * P * ncc, 9 * nzc * Q * Q);
+  const int b = cmax(3 * nzc * P * P + 6 * nzc * P * Q, 9 * Q * ncc);
+  return ClusterPlan{nzc, ncc, a, b, (size_t)tsize * (4 * Q * P + a + b)};
+}
+
+// The fewest CTAs, at most kClusterMax, whose share fits `optin` bytes; 0
+// when none does.
+__host__ __device__ constexpr int cluster_fewest(int P, int Q, int tsize,
+                                                 int optin) {
+  for (int k = 1; k <= kClusterMax; ++k)
+    if (cluster_plan(P, Q, tsize, k).smem <= (size_t)optin) return k;
+  return 0;
+}
+
+// The plan's cluster size for `nelem` elements on `sms` SMs: the fewest
+// CTAs that fit, doubled (within kClusterMax) while a CTA's share leaves
+// no room for a second CTA on its SM, which the registers would allow, or
+// the grid has fewer CTAs than the card has SMs. Measured on the H100
+// (PERF.md §6, in turns): at phase 19's four shapes it picks the fastest
+// of the fewest, twice and four times as many CTAs.
+__host__ __device__ constexpr int cluster_size(int P, int Q, int tsize,
+                                               int nelem, int sms,
+                                               int optin) {
+  int k = cluster_fewest(P, Q, tsize, optin);
+  while (k > 0 && 2 * k <= kClusterMax &&
+         (cluster_plan(P, Q, tsize, k).smem > kClusterPairSmem ||
+          (long long)nelem * k < sms))
+    k *= 2;
+  return k;
+}
+
+// The cluster barrier in its two halves (barrier.cluster: every thread of
+// every CTA arrives; arrive releases, wait acquires).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+template <int PH, bool JAC, typename T>
+__global__ void __launch_bounds__(kGenericThreads,
+                                  cluster_min_ctas(sizeof(T)))
+generic_cluster_kernel(int P, int Q, int A, const T* __restrict__ u,
+                       long long N, const long long* __restrict__ conn,
+                       int nelem, const T* __restrict__ qdata,
+                       const T* __restrict__ Bg, const T* __restrict__ Dg,
+                       T* __restrict__ stash, T* __restrict__ ve, T a, T b) {
+  constexpr bool kStashIn = JAC && Pointwise<PH>::kStash;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const int e = blockIdx.x / k;
+  const int P2 = P * P, P3 = P2 * P, Q2 = Q * Q, Q3 = Q2 * Q;
+  const int nzc = (P + k - 1) / k, ncc = (Q2 + k - 1) / k;
+  const int z0 = r * nzc, nz = max(0, min(nzc, P - z0));
+  const int c0 = r * ncc, nc = max(0, min(ncc, Q2 - c0));
+  const int tid = threadIdx.x, NT = blockDim.x;
+  T* sB = reinterpret_cast<T*>(smem);  // B[q][p]
+  T* sD = sB + Q * P;                  // D[q][p]
+  T* sBT = sD + Q * P;                 // B^T[p][q]
+  T* sDT = sBT + Q * P;                // D^T[p][q]
+  T* RA = sDT + Q * P;                 // region A
+  T* RB = RA + A;                      // region B
+  T* t1 = RB + 3 * nzc * P2;           // t1 [2][c][zl][py][qx]
+  const int T1S = 3 * nzc * P * Q;     // one t1 (and adjoint t1) array
+  const int T2S = 3 * P * ncc;         // one t2 array of the columns
+  const int A2S = 3 * nzc * Q2;        // one adjoint t2 array of the slabs
+  const int DVS = Q * ncc;             // one du / dv plane of the columns
+  const size_t plane = (size_t)nelem * Q3;
+
+  for (int i = tid; i < Q * P; i += NT) {
+    const int q = i / P, p = i - q * P;
+    const T bv = Bg[i], dv = Dg[i];
+    sB[i] = bv;
+    sD[i] = dv;
+    sBT[p * Q + q] = bv;
+    sDT[p * Q + q] = dv;
+  }
+  cluster_arrive();  // started: peers may store into this CTA
+
+  // ---- the gather of the CTA's slabs into ue ----
+  {
+    const long long* ce = conn + (size_t)e * P3 + (size_t)z0 * P2;
+    for (int i = tid; i < nz * P2; i += NT) {
+      const long long node = ce[i];
+      T* ue = RB + i;  // (zl * P + py) * P + px = i
+      for (int c = 0; c < 3; ++c) ue[c * nzc * P2] = u[c * N + node];
+    }
+  }
+  __syncthreads();
+
+  // Every phase below gives a thread the three components of a line
+  // position (one row of B or D serves three lines) and two positions of
+  // the free direction h apart (h = ceil(n / 2)), so one load of a line's
+  // values serves two rows of B or D, or one row of B or D two lines.
+  const int hp = (P + 1) / 2, hq = (Q + 1) / 2;
+  const int US = nzc * P2;      // one component of ue
+  const int TS = nzc * P * Q;   // one component of a t1 (or adjoint t1)
+  const int CS = P * ncc;       // one component of a column t2
+  const int AS = nzc * Q2;      // one component of a slab adjoint t2
+
+  // ---- forward x: t1[0] = B_x u, t1[1] = D_x u at (c, zl, py, qx), rows
+  // py and py + hp ----
+  for (int i = tid; i < nz * hp * Q; i += NT) {
+    const int qx = i % Q, rr = i / Q;
+    const int py = rr % hp, zl = rr / hp;
+    const bool two = py + hp < P;
+    const T* x = RB + (zl * P + py) * P;
+    T bs[2][3] = {}, ds[2][3] = {};
+#pragma unroll 2
+    for (int px = 0; px < P; ++px) {
+      const T bt = sBT[px * Q + qx], dt = sDT[px * Q + qx];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T x0 = x[c * US + px];
+        const T x1 = two ? x[c * US + hp * P + px] : T(0);
+        bs[0][c] += bt * x0;
+        ds[0][c] += dt * x0;
+        bs[1][c] += bt * x1;
+        ds[1][c] += dt * x1;
+      }
+    }
+    T* o = t1 + (zl * P + py) * Q + qx;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o[c * TS] = bs[0][c];
+      o[T1S + c * TS] = ds[0][c];
+      if (two) {
+        o[c * TS + hp * Q] = bs[1][c];
+        o[T1S + c * TS + hp * Q] = ds[1][c];
+      }
+    }
+  }
+  __syncthreads();
+  cluster_wait();  // every peer has started
+
+  // ---- forward y: t2[0] = B_y D_x u, t2[1] = D_y B_x u, t2[2] = B_y B_x u
+  // at (c, pz, col), rows qy and qy + hq, stored into the column owner's
+  // region A ----
+  for (int i = tid; i < nz * hq * Q; i += NT) {
+    const int qx = i % Q, rr = i / Q;
+    const int qy = rr % hq, zl = rr / hq;
+    const bool two = qy + hq < Q;
+    const T* x0 = t1 + zl * P * Q + qx;  // t1[0], then t1[1] at + T1S
+    const T* b0 = sB + qy * P;
+    const T* d0 = sD + qy * P;
+    const T* b1 = two ? b0 + hq * P : b0;
+    const T* d1 = two ? d0 + hq * P : d0;
+    T acc[2][3][3] = {};  // [row][c][bd, db, bb]
+#pragma unroll 2
+    for (int py = 0; py < P; ++py) {
+      const T bv0 = b0[py], dv0 = d0[py], bv1 = b1[py], dv1 = d1[py];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T xb = x0[c * TS + py * Q], xd = x0[T1S + c * TS + py * Q];
+        acc[0][c][0] += bv0 * xd;
+        acc[0][c][1] += dv0 * xb;
+        acc[0][c][2] += bv0 * xb;
+        acc[1][c][0] += bv1 * xd;
+        acc[1][c][1] += dv1 * xb;
+        acc[1][c][2] += bv1 * xb;
+      }
+    }
+    const int pz = z0 + zl;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !two) break;
+      const int col = (qy + h * hq) * Q + qx;
+      const int o = col / ncc, lc = col - o * ncc;
+      T* dst = cluster.map_shared_rank(RA, o) + pz * ncc + lc;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        dst[c * CS] = acc[h][c][0];
+        dst[T2S + c * CS] = acc[h][c][1];
+        dst[2 * T2S + c * CS] = acc[h][c][2];
+      }
+    }
+  }
+  cluster.sync();  // every column's t2 is in
+
+  // ---- forward z: du[3c + k] at (qz, col), rows qz and qz + hq, into
+  // the du planes of region B ----
+  for (int i = tid; i < hq * nc; i += NT) {
+    const int qz = i / nc, lc = i - qz * nc;
+    const bool two = qz + hq < Q;
+    const T* b0 = sB + qz * P;
+    const T* d0 = sD + qz * P;
+    const T* b1 = two ? b0 + hq * P : b0;
+    const T* d1 = two ? d0 + hq * P : d0;
+    const T* t2 = RA + lc;  // t2[k][c][pz][col] at k T2S + c CS + pz ncc
+    T du[2][9] = {};
+#pragma unroll 2
+    for (int pz = 0; pz < P; ++pz) {
+      const T bv0 = b0[pz], dv0 = d0[pz], bv1 = b1[pz], dv1 = d1[pz];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T* r0 = t2 + c * CS + pz * ncc;
+        const T y0 = r0[0], y1 = r0[T2S], y2 = r0[2 * T2S];
+        du[0][3 * c + 0] += bv0 * y0;
+        du[0][3 * c + 1] += bv0 * y1;
+        du[0][3 * c + 2] += dv0 * y2;
+        du[1][3 * c + 0] += bv1 * y0;
+        du[1][3 * c + 1] += bv1 * y1;
+        du[1][3 * c + 2] += dv1 * y2;
+      }
+    }
+    T* o = RB + qz * ncc + lc;
+#pragma unroll
+    for (int m = 0; m < 9; ++m) {
+      o[m * DVS] = du[0][m];
+      if (two) o[m * DVS + hq * ncc] = du[1][m];
+    }
+  }
+  __syncthreads();
+
+  // ---- pointwise physics, one point (qz, col) of the CTA's columns a
+  // thread at a time; dv overwrites du in place ----
+  for (int i = tid; i < Q * nc; i += NT) {
+    const int qz = i / nc, lc = i - qz * nc;
+    const size_t off = (size_t)e * Q3 + (size_t)qz * Q2 + c0 + lc;
+    T* o = RB + qz * ncc + lc;
+    T du[9], X[9], dv[9], g[9];
+#pragma unroll
+    for (int m = 0; m < 9; ++m) du[m] = o[m * DVS];
+    const T wdetJ = qdata[off];
+#pragma unroll
+    for (int m = 0; m < 9; ++m) X[m] = qdata[(1 + m) * plane + off];
+    if constexpr (JAC) {
+      if constexpr (kStashIn) {
+#pragma unroll
+        for (int m = 0; m < 9; ++m) g[m] = stash[m * plane + off];
+      }
+      jacobian_point<PH>(du, X, wdetJ, g, a, b, dv);
+    } else {
+      residual_point<PH>(du, X, wdetJ, a, b, dv, g);
+      if constexpr (Pointwise<PH>::kStash) {
+#pragma unroll
+        for (int m = 0; m < 9; ++m) stash[m * plane + off] = g[m];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 9; ++m) o[m * DVS] = dv[m];
+  }
+  cluster.sync();  // no CTA reads its t2 any more
+
+  // ---- adjoint z: adjoint t2[0] = B_z^T dv[3c], [1] = B_z^T dv[3c+1],
+  // [2] = D_z^T dv[3c+2] at (c, pz, col), rows pz and pz + hp, stored
+  // into the slab owner's region A ----
+  for (int i = tid; i < hp * nc; i += NT) {
+    const int pz = i / nc, lc = i - pz * nc;
+    const bool two = pz + hp < P;
+    const int pz1 = two ? pz + hp : pz;
+    const T* d = RB + lc;  // dv[m][qz][col] at m DVS + qz ncc
+    T acc[2][9] = {};
+#pragma unroll 2
+    for (int qz = 0; qz < Q; ++qz) {
+      const T bt0 = sB[qz * P + pz], dt0 = sD[qz * P + pz];
+      const T bt1 = sB[qz * P + pz1], dt1 = sD[qz * P + pz1];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T* r0 = d + 3 * c * DVS + qz * ncc;
+        const T v0 = r0[0], v1 = r0[DVS], v2 = r0[2 * DVS];
+        acc[0][3 * c + 0] += bt0 * v0;
+        acc[0][3 * c + 1] += bt0 * v1;
+        acc[0][3 * c + 2] += dt0 * v2;
+        acc[1][3 * c + 0] += bt1 * v0;
+        acc[1][3 * c + 1] += bt1 * v1;
+        acc[1][3 * c + 2] += dt1 * v2;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !two) break;
+      const int p = pz + h * hp;
+      const int s = p / nzc, zl = p - s * nzc;
+      T* dst = cluster.map_shared_rank(RA, s) + zl * Q2 + c0 + lc;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        dst[c * AS] = acc[h][3 * c + 0];
+        dst[A2S + c * AS] = acc[h][3 * c + 1];
+        dst[2 * A2S + c * AS] = acc[h][3 * c + 2];
+      }
+    }
+  }
+  cluster.sync();  // every slab's adjoint t2 is in; no peer touches this
+                   // CTA any more
+
+  // ---- adjoint y: adjoint t1[0] = B_y^T a2[0], [1] = D_y^T a2[1] +
+  // B_y^T a2[2] at (c, zl, py, qx), rows py and py + hp ----
+  for (int i = tid; i < nz * hp * Q; i += NT) {
+    const int qx = i % Q, rr = i / Q;
+    const int py = rr % hp, zl = rr / hp;
+    const bool two = py + hp < P;
+    const int py1 = two ? py + hp : py;
+    const T* y = RA + zl * Q2 + qx;  // a2[k][c][zl][qy qx] at k A2S + c AS
+    T bx[2][3] = {}, bb[2][3] = {};
+#pragma unroll 2
+    for (int qy = 0; qy < Q; ++qy) {
+      const T bt0 = sB[qy * P + py], dt0 = sD[qy * P + py];
+      const T bt1 = sB[qy * P + py1], dt1 = sD[qy * P + py1];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T* r0 = y + c * AS + qy * Q;
+        const T y0 = r0[0], y1 = r0[A2S], y2 = r0[2 * A2S];
+        bx[0][c] += bt0 * y0;
+        bb[0][c] += dt0 * y1 + bt0 * y2;
+        bx[1][c] += bt1 * y0;
+        bb[1][c] += dt1 * y1 + bt1 * y2;
+      }
+    }
+    T* o = RB + (zl * P + py) * Q + qx;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o[c * TS] = bx[0][c];
+      o[T1S + c * TS] = bb[0][c];
+      if (two) {
+        o[c * TS + hp * Q] = bx[1][c];
+        o[T1S + c * TS + hp * Q] = bb[1][c];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- adjoint x: ve = D_x^T a1[0] + B_x^T a1[1] at (c, e, pz, py, px),
+  // columns px and px + hp, written straight to global memory ----
+  for (int i = tid; i < nz * P * hp; i += NT) {
+    const int px = i % hp, rr = i / hp;
+    const int py = rr % P, zl = rr / P;
+    const bool two = px + hp < P;
+    const int px1 = two ? px + hp : px;
+    const T* x = RB + (zl * P + py) * Q;  // a1[k][c][zl][py][qx]
+    T acc[2][3] = {};
+#pragma unroll 2
+    for (int qx = 0; qx < Q; ++qx) {
+      const T d0 = sD[qx * P + px], b0 = sB[qx * P + px];
+      const T d1 = sD[qx * P + px1], b1 = sB[qx * P + px1];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T x0 = x[c * TS + qx], x1 = x[T1S + c * TS + qx];
+        acc[0][c] += d0 * x0 + b0 * x1;
+        acc[1][c] += d1 * x0 + b1 * x1;
+      }
+    }
+    T* o = ve + (size_t)e * P3 + (size_t)(z0 + zl) * P2 + py * P + px;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o[(size_t)c * nelem * P3] = acc[0][c];
+      if (two) o[(size_t)c * nelem * P3 + hp] = acc[1][c];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1821,15 +2199,15 @@ constexpr int kGenericWarpQ = 3;       // Q <= 3: a warp a tile
 constexpr int kGenericWarpsPerSm = 4;  // tiles an SM before E grows
 constexpr int kGatherBatch = 4;        // node ids in flight a thread
 
-enum GenericBody {
-  kBodySmem = 0,     // generic_tile_kernel, above the register cap
+enum GenericBody {   // 0: retired (a shared-memory body, one CTA a tile)
   kBodyWarp3x2 = 1,  // warp team, PC = 3, QC = 2
   kBodyWarp6x2 = 2,  // warp team, PC = 6, QC = 2
   kBodyWarp8x3 = 3,  // warp team, PC = 8, QC = 3
   kBodyBlock8 = 4,   // block team, PC = 8, QC = 8
-  kBodyGmem = 5,     // generic_gmem_kernel, where the smem body's one
-                     // element exceeds a block's shared memory
-  kNumBodies = 6
+  kBodyGmem = 5,     // generic_gmem_kernel, where no cluster of
+                     // kClusterMax CTAs holds an element
+  kBodyCluster = 6,  // generic_cluster_kernel, above the register cap
+  kNumBodies = 7
 };
 
 // The body at (P, Q) in words of `tsize` bytes, on a device whose blocks
@@ -1837,8 +2215,8 @@ enum GenericBody {
 __host__ __device__ constexpr int generic_body(int P, int Q, int tsize,
                                                int optin) {
   return P > kGenericRegCap || Q > kGenericRegCap
-             ? (generic_plan(P, Q, tsize).smem > (size_t)optin ? kBodyGmem
-                                                               : kBodySmem)
+             ? (cluster_fewest(P, Q, tsize, optin) > 0 ? kBodyCluster
+                                                       : kBodyGmem)
          : Q > kGenericWarpQ ? kBodyBlock8
          : Q > 2 || P > 6    ? kBodyWarp8x3
          : P > 3             ? kBodyWarp6x2
@@ -1846,7 +2224,7 @@ __host__ __device__ constexpr int generic_body(int P, int Q, int tsize,
 }
 // Whether a body is one of the register bodies (which stage the streams).
 __host__ __device__ constexpr bool reg_body(int body) {
-  return body != kBodySmem && body != kBodyGmem;
+  return body != kBodyGmem && body != kBodyCluster;
 }
 __host__ __device__ constexpr int body_pc(int body) {
   return body == kBodyWarp3x2 ? 3 : body == kBodyWarp6x2 ? 6 : 8;
@@ -1867,34 +2245,46 @@ struct GenericLaunch {
   size_t smem;       // dynamic shared memory, bytes
   int tiles;         // blocks (the gmem body: its persistent grid)
   size_t work;       // the gmem body's global workspace, bytes (else 0)
+  int cluster;       // the cluster body: CTAs a cluster (an element)
+  int clusters;      // the cluster body: clusters (else 0)
 };
 
 // The launch of the generic tile at (P, Q) for `nelem` elements on a card
 // of `sms` SMs whose blocks may opt in to `optin` bytes of shared memory
-// (ops/fused_apply.py generic_plan mirrors it).
+// (ops/fused_apply.py generic_plan mirrors it); `cluster` > 0 sets the
+// cluster body's size instead of cluster_size.
 __host__ __device__ constexpr GenericLaunch generic_launch(int P, int Q,
                                                            int tsize,
                                                            int nelem, int sms,
                                                            int planes,
-                                                           int optin) {
+                                                           int optin,
+                                                           int cluster = 0) {
   GenericLaunch g{};
   g.body = generic_body(P, Q, tsize, optin);
-  if (!reg_body(g.body)) {
-    const GenericPlan s = generic_plan(P, Q, tsize);
+  if (g.body == kBodyCluster) {
+    const int k = cluster > 0 ? cluster
+                              : cluster_size(P, Q, tsize, nelem, sms, optin);
+    const ClusterPlan c = cluster_plan(P, Q, tsize, k);
+    g.elems = 1;
     g.threads = kGenericThreads;
-    g.a_words = s.a_words;
-    g.b_words = s.b_words;
-    if (g.body == kBodySmem) {
-      g.elems = s.elems;
-      g.smem = s.smem;
-    } else {
-      // one element a block at a time, B and D alone in shared memory
-      g.elems = 1;
-      g.smem = (size_t)tsize * 2 * Q * P;
-      g.tiles = cmin(nelem, kGmemBlocksPerSm * sms);
-      g.work = (size_t)tsize * g.tiles * (s.a_words + s.b_words);
-      return g;
-    }
+    g.a_words = c.a_words;
+    g.b_words = c.b_words;
+    g.smem = c.smem;
+    g.cluster = k;
+    g.clusters = nelem;
+    g.tiles = nelem * k;
+    return g;
+  }
+  if (g.body == kBodyGmem) {
+    // one element a block at a time, B and D alone in shared memory
+    g.threads = kGenericThreads;
+    g.a_words = gmem_a_words(P, Q);
+    g.b_words = gmem_words(P, Q) - g.a_words;
+    g.elems = 1;
+    g.smem = (size_t)tsize * 2 * Q * P;
+    g.tiles = cmin(nelem, kGmemBlocksPerSm * sms);
+    g.work = (size_t)tsize * g.tiles * gmem_words(P, Q);
+    return g;
   } else {
     const int PC = body_pc(g.body), QC = body_qc(g.body);
     const int V = 16 / tsize, Q3 = Q * Q * Q, PP = P | 1, QQ = Q | 1;
@@ -2489,6 +2879,36 @@ cudaError_t launch_pq(int jacobian, int is_double, const void* u, long long N,
 // (g.work bytes).
 constexpr int kSmemRefused = -2;
 constexpr int kWorkShort = -3;  // the gmem body's workspace is missing or short
+constexpr int kClusterRefused = -4;  // no cluster of the launch fits the card,
+                                     // or a cluster size asked for is refused
+
+// Before a cluster launch's first run on a device (one query a kernel,
+// cluster size and shared memory): the CUDA error of
+// cudaOccupancyMaxActiveClusters, kClusterRefused when the card holds no
+// cluster of it, else 0.
+inline int cluster_check(const void* kernel, const cudaLaunchConfig_t& cfg,
+                         int dev, int k) {
+  struct Seen {
+    const void* kernel;
+    int dev, k;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static Seen seen[256];
+  static int n = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n; ++i)
+    if (seen[i].kernel == kernel && seen[i].dev == dev && seen[i].k == k &&
+        seen[i].smem == cfg.dynamicSmemBytes)
+      return 0;
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel,
+                                                         &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return kClusterRefused;
+  if (n < 256) seen[n++] = Seen{kernel, dev, k, cfg.dynamicSmemBytes};
+  return 0;
+}
 
 template <int PH, bool JAC, typename T, int BODY>
 int launch_generic_body(const GenericLaunch& g, int optin, int P, int Q,
@@ -2501,19 +2921,34 @@ int launch_generic_body(const GenericLaunch& g, int optin, int P, int Q,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
-  if constexpr (BODY == kBodySmem) {
-    auto kernel = generic_tile_kernel<PH, JAC, T>;
+  if constexpr (BODY == kBodyCluster) {
+    auto kernel = generic_cluster_kernel<PH, JAC, T>;
     if (!(ready.load() >> dev & 1u)) {
       err = prepare(kernel, static_cast<size_t>(optin));
       if (err != cudaSuccess) return static_cast<int>(err);
       ready.fetch_or(1u << dev);
     }
-    kernel<<<g.tiles, g.threads, g.smem, stream>>>(
-        P, Q, g.elems, g.a_words, g.b_words, static_cast<const T*>(u), N,
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = g.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(g.tiles);
+    cfg.blockDim = dim3(g.threads);
+    cfg.dynamicSmemBytes = g.smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const int r = cluster_check(reinterpret_cast<const void*>(kernel), cfg,
+                                dev, g.cluster);
+    if (r != 0) return r;
+    return static_cast<int>(cudaLaunchKernelEx(
+        &cfg, kernel, P, Q, g.a_words, static_cast<const T*>(u), N,
         static_cast<const long long*>(conn), nelem,
         static_cast<const T*>(qdata), static_cast<const T*>(B),
         static_cast<const T*>(D), static_cast<T*>(stash),
-        static_cast<T*>(ve), T(a), T(b));
+        static_cast<T*>(ve), T(a), T(b)));
   } else if constexpr (BODY == kBodyGmem) {
     auto kernel = generic_gmem_kernel<PH, JAC, T>;
     if (!(ready.load() >> dev & 1u)) {
@@ -2670,7 +3105,7 @@ int dispatch_any(int physics, int P, CPS_DISPATCH_PARAMS) {
 
 // The generic tile of physics = PHc..kNumPhysics-1, body = BODYc..
 // kNumBodies-1.
-template <int PH, int BODYc = 0>
+template <int PH, int BODYc = kBodyWarp3x2>
 int dispatch_generic_body(int body, const GenericLaunch& g, int optin, int P,
                           int bulk, void* work, CPS_DISPATCH_PARAMS) {
   if constexpr (BODYc >= kNumBodies) {
@@ -2726,28 +3161,37 @@ inline int device_limits(DeviceLimits* out) {
   return 0;
 }
 
-// The generic tile's launch for these arguments on the current device.
+// The generic tile's launch for these arguments on the current device
+// (`cluster` as generic_launch takes it).
 inline int generic_for(int physics, int P, int Q, int jacobian, int is_double,
-                       int nelem, GenericLaunch* g, DeviceLimits* lim) {
+                       int nelem, int cluster, GenericLaunch* g,
+                       DeviceLimits* lim) {
   const int r = device_limits(lim);
   if (r != 0) return r;
   const bool stash_in = jacobian && has_stash(physics);
   *g = generic_launch(P, Q, is_double ? 8 : 4, nelem, lim->sms,
-                      stash_in ? 19 : 10, lim->optin);
+                      stash_in ? 19 : 10, lim->optin, cluster);
   return 0;
 }
 
 // Launches the generic tile; the CUDA error of its set-up, kSmemRefused
 // when its tile needs more shared memory than a block may opt in to on
-// this device, or kWorkShort when the gmem body's workspace `work` holds
-// fewer than the plan's bytes (`work_bytes`: its size).
+// this device, kWorkShort when the gmem body's workspace `work` holds
+// fewer than the plan's bytes (`work_bytes`: its size), kClusterRefused
+// when `cluster` (> 0: the cluster body's size instead of the plan's) is
+// not a size of 1..kClusterMax of a shape that runs the cluster body, or
+// the card holds no cluster of the launch.
 inline int launch_generic(int physics, int P, void* work,
-                          long long work_bytes, CPS_DISPATCH_PARAMS) {
+                          long long work_bytes, int cluster,
+                          CPS_DISPATCH_PARAMS) {
   GenericLaunch g;
   DeviceLimits lim;
-  const int r = generic_for(physics, P, Q, jacobian, is_double, nelem, &g,
-                            &lim);
+  const int r = generic_for(physics, P, Q, jacobian, is_double, nelem,
+                            cluster, &g, &lim);
   if (r != 0) return r;
+  if (cluster != 0 && (g.body != kBodyCluster || cluster < 1 ||
+                       cluster > kClusterMax))
+    return kClusterRefused;
   if (g.smem > static_cast<size_t>(lim.optin)) return kSmemRefused;
   if (g.tiles == 0) return 0;
   if (g.work > 0 &&
@@ -2770,33 +3214,41 @@ extern "C" {
 // Launches one fused apply of pointwise physics `physics` on `stream`: the
 // template instance of (physics, P, Q) where there is one, else the generic
 // tile; `work` (`work_bytes` bytes on the device): the workspace of the
-// generic tile's gmem body (cps_fused_plan's out[8] bytes), else unused.
+// generic tile's gmem body (cps_fused_plan's out[8] bytes), else unused;
+// `cluster`: 0 for the plan's cluster size, else the cluster body's size
+// (1..8; a measurement's override, refused for any other body).
 // Returns the CUDA error of the set-up or, after the launch,
 // cudaGetLastError() (0 on success); -1 when neither runs (physics, P, Q),
 // -2 when the generic tile needs more shared memory than a block may have,
-// -3 when the gmem body's workspace is missing or short.
+// -3 when the gmem body's workspace is missing or short, -4 when a cluster
+// size is refused or the card holds no cluster of the launch.
 int cps_fused_apply(int physics, int jacobian, int P, int Q, int is_double,
                     const void* u, long long N, const void* conn, int nelem,
                     const void* qdata, const void* B, const void* D,
                     void* stash, void* ve, double a, double b, void* stream,
-                    void* work, long long work_bytes) {
+                    void* work, long long work_bytes, int cluster) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int r =
-      cps::generic_pq(physics, P, Q)
-          ? cps::launch_generic(physics, P, work, work_bytes,
-                                CPS_DISPATCH_ARGS)
-          : cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
+  int r;
+  if (cps::generic_pq(physics, P, Q))
+    r = cps::launch_generic(physics, P, work, work_bytes, cluster,
+                            CPS_DISPATCH_ARGS);
+  else
+    r = cluster != 0 ? cps::kClusterRefused
+                     : cps::dispatch_any(physics, P, CPS_DISPATCH_ARGS);
   if (r != 0) return r;
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch cps_fused_apply makes for the same arguments, without making
-// it: out = {elements a tile, threads a block, dynamic shared memory bytes,
-// tiles (blocks), path (1 TMA bulk, 0 cp.async; the generic tile: 3 a
-// register body, 2 the shared-memory body, 4 the global-memory body),
+// The launch cps_fused_apply makes for the same arguments (cluster = 0),
+// without making it: out = {elements a tile, threads a block, dynamic
+// shared memory bytes (the cluster body: a CTA's), tiles (blocks), path (1
+// TMA bulk, 0 cp.async; the generic tile: 3 a register body, 4 the
+// global-memory body, 5 the cluster body; 2, a retired shared-memory body,
+// no longer occurs),
 // minimum blocks an SM of __launch_bounds__, the generic register body's
 // copy path (1 TMA bulk, 0 cp.async; else -1), the generic tile's body
-// (GenericBody; else -1), the gmem body's workspace bytes (else 0)}.
+// (GenericBody; else -1), the gmem body's workspace bytes (else 0), the
+// cluster body's CTAs a cluster and clusters (else 0, 0)}.
 // Returns 0, -1 when (physics, P, Q) runs on neither, or the CUDA error of
 // reading the device's limits.
 int cps_fused_plan(int physics, int jacobian, int P, int Q, int is_double,
@@ -2807,23 +3259,27 @@ int cps_fused_plan(int physics, int jacobian, int P, int Q, int is_double,
   out[6] = -1;
   out[7] = -1;
   out[8] = 0;
+  out[9] = 0;
+  out[10] = 0;
   if (cps::generic_pq(physics, P, Q)) {
     cps::GenericLaunch g;
     cps::DeviceLimits lim;
     const int r = cps::generic_for(physics, P, Q, jacobian, is_double, nelem,
-                                   &g, &lim);
+                                   0, &g, &lim);
     if (r != 0) return r;
     const bool reg = cps::reg_body(g.body);
     out[0] = g.elems;
     out[1] = g.threads;
     out[2] = static_cast<long long>(g.smem);
     out[3] = g.tiles;
-    out[4] = reg ? 3 : g.body == cps::kBodySmem ? 2 : 4;
+    out[4] = reg ? 3 : g.body == cps::kBodyCluster ? 5 : 4;
     out[5] = 1;
     if (reg)
       out[6] = cps::bulk_path(tsize, nelem, Q, qdata, stash, stash_in) ? 1 : 0;
     out[7] = g.body;
     out[8] = static_cast<long long>(g.work);
+    out[9] = g.cluster;
+    out[10] = g.clusters;
     return 0;
   }
   if (!cps::has_instance(physics, P, Q)) return -1;

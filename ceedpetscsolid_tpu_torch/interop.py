@@ -24,6 +24,8 @@ its scripts/usolve_ckpt.py saves them) resumes in the port as
 `ElasticityProblem.solve(u0=u_from_jax(u), start_load=load,
 floor_atol0=floor)`.
 
+Every converter to a tensor takes `device` as a keyword with no default
+(a default of the CPU would leave a caller that forgets it on the CPU).
 Nothing here imports JAX: callers convert with np.asarray first.
 """
 
@@ -42,8 +44,8 @@ def _tensor(a, dtype, device) -> torch.Tensor:
                         device=device)
 
 
-def qdata_from_jax(qdata, nelem: int, Q3: int, dtype=torch.float64,
-                   device="cpu") -> torch.Tensor:
+def qdata_from_jax(qdata, nelem: int, Q3: int, dtype=torch.float64, *,
+                   device) -> torch.Tensor:
     """(10, nelem, Q3) qdata; a lane/row-padded Pallas view
     (10, e_pad, Q3p) is cut back to [:, :nelem, :Q3]."""
     a = np.asarray(qdata)
@@ -52,8 +54,8 @@ def qdata_from_jax(qdata, nelem: int, Q3: int, dtype=torch.float64,
     return _tensor(a[:, :nelem, :Q3], dtype, device)
 
 
-def stash_from_jax(stash, nelem: int, Q3: int, dtype=torch.float64,
-                   device="cpu") -> torch.Tensor:
+def stash_from_jax(stash, nelem: int, Q3: int, dtype=torch.float64, *,
+                   device) -> torch.Tensor:
     """JAX stash -> (9, nelem, Q3). Accepts the nine Mat3 planes (each
     (nelem, Q3)) or the Pallas (9, e_pad, Q3p) array, which is cut back as
     ceedpetscsolid_tpu/ops/pallas_apply.py:stash_view does."""
@@ -69,7 +71,7 @@ def stash_from_jax(stash, nelem: int, Q3: int, dtype=torch.float64,
     return _tensor(a[:, :nelem, :Q3], dtype, device)
 
 
-def u_from_jax(u, dtype=torch.float64, device="cpu") -> torch.Tensor:
+def u_from_jax(u, dtype=torch.float64, *, device) -> torch.Tensor:
     """(3, N) component-major L-vector."""
     a = np.asarray(u)
     if a.ndim != 2 or a.shape[0] != 3:
@@ -81,15 +83,15 @@ def physics_from_jax(phys) -> Physics:
     return Physics(nu=float(phys.nu), E=float(phys.E))
 
 
-def pc_from_jax(diag_invs, bounds, dtype=torch.float64, device="cpu"):
+def pc_from_jax(diag_invs, bounds, dtype=torch.float64, *, device):
     """JAX `mg_setup` output (per-level inverse diagonals, per-level
     (lam_min, lam_max)) -> the port's (list of (3, N_l) tensors, list of
     float pairs), so a V-cycle runs on identical preconditioner data."""
-    return ([u_from_jax(d, dtype, device) for d in diag_invs],
+    return ([u_from_jax(d, dtype, device=device) for d in diag_invs],
             [(float(lo), float(hi)) for lo, hi in bounds])
 
 
-def mask_from_jax(mask, device="cpu") -> torch.Tensor:
+def mask_from_jax(mask, *, device) -> torch.Tensor:
     """(3, N_l) constrained-DOF mask of a level."""
     a = np.asarray(mask)
     if a.ndim != 2 or a.shape[0] != 3 or a.dtype != np.bool_:
@@ -98,12 +100,12 @@ def mask_from_jax(mask, device="cpu") -> torch.Tensor:
 
 
 def stash_pair_from_jax(mu, pressure, nelem: int, Q3: int,
-                        dtype=torch.float64, device="cpu"):
+                        dtype=torch.float64, *, device):
     """hyperFSIncomp's composite stash: the mu part's (Q3 points) and the
     pressure part's (one point per element), each as stash_from_jax takes
     it (JAX's factory.stash_view / pfactory.stash_view of the pair)."""
-    return (stash_from_jax(mu, nelem, Q3, dtype, device),
-            stash_from_jax(pressure, nelem, 1, dtype, device))
+    return (stash_from_jax(mu, nelem, Q3, dtype, device=device),
+            stash_from_jax(pressure, nelem, 1, dtype, device=device))
 
 
 def csr_from_jax(indptr, indices, data, n: int) -> sp.csr_matrix:
@@ -116,8 +118,8 @@ def csr_from_jax(indptr, indices, data, n: int) -> sp.csr_matrix:
                           np.array(indptr, np.int64)), shape=(n, n))
 
 
-def owned_from_jax(arr, rank: int, dtype=torch.float64,
-                   device="cpu") -> torch.Tensor:
+def owned_from_jax(arr, rank: int, dtype=torch.float64, *,
+                   device) -> torch.Tensor:
     """Rank `rank`'s (c, n_owned_max) block of the JAX package's sharded
     owned array (ndev, c, n_owned_max), the output of its
     DistributedProblem.to_owned. Both packages partition with the same

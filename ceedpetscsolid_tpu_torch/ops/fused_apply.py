@@ -19,21 +19,23 @@ takes it as a template parameter (ids shared with csrc/fused_apply.cu).
 `residual` and `jacobian` choose by the device of their input: a CPU tensor
 takes the plain version; a CUDA tensor launches the kernel, and raises if
 the kernel cannot be built or launched. There is no fallback from CUDA to
-the plain version. A (physics, P, Q) with a template instance
-(`Pointwise.instances`) feeds its per-point streams into shared memory by
-TMA bulk copies or by cp.async, as `copy_path` says (the kernel decides by
-the same rule); every other pair runs on the generic tile, whose P and Q
-are run-time arguments (`is_generic`): a register body up to P, Q = 8,
-the shared-memory body above, and the global-memory body where one
-element's buffers exceed the shared memory a block may have, at any
-(P, Q) within `GENERIC_MAX_PQ`. The library chooses the body and sizes
-the tile from the element count and the card's own limits; the wrapper
-allocates the gmem body's workspace at the size the library's plan gives,
-and `generic_plan` mirrors that plan at the H100's limits for the tests
-and `COUNTS`. `COUNTS.by_path` counts each path: "bulk", "async",
-"generic", "generic_smem", "generic_gmem". `plan` reports the launch the
-kernel makes (tile, threads, shared memory, path, the generic tile's body
-and copy path, the workspace).
+the plain version, nor from one body of the kernel to another. A
+(physics, P, Q) with a template instance (`Pointwise.instances`) feeds its
+per-point streams into shared memory by TMA bulk copies or by cp.async, as
+`copy_path` says (the kernel decides by the same rule); every other pair
+runs on the generic tile, whose P and Q are run-time arguments
+(`is_generic`): a register body up to P, Q = 8, the cluster body above
+(an element in the shared memory of a thread-block cluster of up to
+CLUSTER_MAX CTAs), and the global-memory body where no such cluster holds
+an element, at any (P, Q) within `GENERIC_MAX_PQ`. The library chooses the
+body and sizes the tile (the cluster) from the element count and the
+card's own limits; the wrapper allocates the gmem body's workspace at the
+size the library's plan gives, and `generic_plan` mirrors that plan at
+the H100's limits for the tests and `COUNTS`. `COUNTS.by_path` counts each
+path: "bulk", "async", "generic", "generic_cluster", "generic_gmem".
+`plan` reports the launch the kernel makes (tile, threads, shared memory,
+path, the generic tile's body and copy path, the workspace, the cluster
+size and count).
 
 `min_bytes` and `min_flops` count what one apply must move and compute,
 from shapes alone; `bound_ms` turns them into the least time the card
@@ -75,18 +77,17 @@ _DTYPES = {torch.float32: 0, torch.float64: 1}
 # for Q <= GENERIC_WARP_Q (GENERIC_CAPS: "warp3x2", "warp6x2", "warp8x3",
 # the first whose caps hold (P, Q)), a block of up to GENERIC_THREADS
 # threads a tile above ("block8x8"); a tile grows past one element only
-# once the card has GENERIC_WARPS_PER_SM warp tiles (a block tile) an SM.
-# Above the cap the shared-memory body
-# (generic_tile_kernel, "smem") takes GENERIC_THREADS threads, at most
-# GENERIC_MAX_ELEMS elements a tile. A tile of more than one element stays
-# within GENERIC_BUDGET bytes of shared memory. Where one element needs
-# more than a block of the H100 may opt in to (H100_SMEM_PER_BLOCK,
-# cudaDevAttrMaxSharedMemoryPerBlockOptin) the global-memory body
-# (generic_gmem_kernel, "gmem") runs it: the same phases, one element a
+# once the card has GENERIC_WARPS_PER_SM warp tiles (a block tile) an SM;
+# a tile of more than one element stays within GENERIC_BUDGET bytes of
+# shared memory. Above the cap the cluster body (generic_cluster_kernel,
+# "cluster") runs one element a cluster of k CTAs of GENERIC_THREADS
+# threads (cluster_plan, cluster_size), where a CTA's share fits what a
+# block of the H100 may opt in to (H100_SMEM_PER_BLOCK,
+# cudaDevAttrMaxSharedMemoryPerBlockOptin) at k <= CLUSTER_MAX; else the
+# global-memory body (generic_gmem_kernel, "gmem") runs it, one element a
 # block at a time, its buffers in a global workspace, on a persistent grid
 # of GMEM_BLOCKS_PER_SM blocks an SM (fewer with fewer elements).
 GENERIC_THREADS = 256
-GENERIC_MAX_ELEMS = 64
 GENERIC_BUDGET = 64 * 1024
 GENERIC_MAX_PQ = 64
 GENERIC_REG_CAP = 8
@@ -96,9 +97,18 @@ H100_SMEM_PER_BLOCK = 232_448
 H100_SMS = 132
 GMEM_BLOCKS_PER_SM = 2
 BAR_BYTES = 16          # the tile's mbarrier, padded to 16 bytes
-# cps_fused_plan's body codes of the generic tile
-GENERIC_BODIES = {0: "smem", 1: "warp3x2", 2: "warp6x2", 3: "warp8x3",
-                  4: "block8x8", 5: "gmem"}
+# the cluster body: at most CLUSTER_MAX CTAs a cluster (the portable limit);
+# the plan doubles the fewest that fit while a CTA takes more than
+# CLUSTER_PAIR_SMEM (two CTAs, which the registers allow, would not share
+# an SM: H100_SM_SMEM less a block's reserve each) or the grid has fewer
+# CTAs than the card has SMs
+CLUSTER_MAX = 8
+H100_SM_SMEM = 233_472
+CLUSTER_PAIR_SMEM = (H100_SM_SMEM - 2 * 1024) // 2
+# cps_fused_plan's body codes of the generic tile (0, a shared-memory body,
+# is retired)
+GENERIC_BODIES = {1: "warp3x2", 2: "warp6x2", 3: "warp8x3", 4: "block8x8",
+                  5: "gmem", 6: "cluster"}
 # the register bodies' caps (PC >= P, QC >= Q) of their row arrays
 GENERIC_CAPS = {1: (3, 2), 2: (6, 2), 3: (8, 3), 4: (8, 8)}
 
@@ -161,8 +171,8 @@ def pointwise(physics: str | Pointwise) -> Pointwise:
 
 class LaunchCounts:
     """Kernel launches per mode, per (mode, P, Q), per (physics, mode, P, Q),
-    per (physics, mode, P, Q, elements) and per (mode, path), counted where
-    the wrapper launches. Launch
+    per (physics, mode, P, Q, elements), per (mode, path) and per
+    (physics, mode, P, Q, path), counted where the wrapper launches. Launch
     bookkeeping only: nothing reads it to decide anything."""
 
     def __init__(self):
@@ -175,6 +185,7 @@ class LaunchCounts:
         self.by_physics = {}        # (physics, mode, P, Q) -> n
         self.by_shape = {}          # (physics, mode, P, Q, nelem) -> n
         self.by_path = {}           # (mode, launch_path) -> n
+        self.by_pq_path = {}        # (physics, mode, P, Q, launch_path) -> n
 
     def add(self, mode: str, basis: Basis3D, physics: str = "hyperFS",
             path: str = "bulk", nelem: int = 0):
@@ -190,6 +201,8 @@ class LaunchCounts:
         self.by_shape[key] = self.by_shape.get(key, 0) + 1
         key = (mode, path)
         self.by_path[key] = self.by_path.get(key, 0) + 1
+        key = (physics, mode, basis.P, basis.Q, path)
+        self.by_pq_path[key] = self.by_pq_path.get(key, 0) + 1
 
 
 COUNTS = LaunchCounts()
@@ -251,43 +264,74 @@ def is_generic(physics, P: int, Q: int) -> bool:
 class GenericPlan(NamedTuple):
     """The generic tile's launch (csrc/fused_apply.cu generic_launch)."""
 
-    path: str       # "generic" (a register body) | "generic_smem" |
-                    # "generic_gmem"
+    path: str       # "generic" (a register body) | "generic_gmem" |
+                    # "generic_cluster"
     body: str       # GENERIC_BODIES
     elems: int      # elements a tile (one tile a block)
     threads: int    # threads a block
-    smem: int       # dynamic shared memory a block, bytes
+    smem: int       # dynamic shared memory a block (a CTA), bytes
     tiles: int      # blocks
     work: int = 0   # the gmem body's global workspace, bytes
+    cluster: int = 0    # the cluster body's CTAs a cluster
+    clusters: int = 0   # the cluster body's clusters (one an element)
 
 
 def _buffer_words(P: int, Q: int) -> int:
-    """Buffers A and B of one element of the smem and gmem bodies, in
-    words: max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3)."""
+    """Buffers A and B of one element of the gmem body, in words:
+    max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3)."""
     return max(3 * P ** 3, 9 * P * Q * Q) + max(6 * P * P * Q, 9 * Q ** 3)
 
 
-def _smem_tile(P: int, Q: int, w: int) -> tuple[int, int]:
-    """The smem body's (elements a tile, shared memory bytes) in words of
-    `w` bytes: min(64, 256 // Q^3) elements, at least 1, fewer while B, D
-    and the tile's buffers exceed GENERIC_BUDGET."""
-    E = max(1, min(GENERIC_MAX_ELEMS, GENERIC_THREADS // Q ** 3))
-    while E > 1 and w * (2 * Q * P + E * _buffer_words(P, Q)) > \
-            GENERIC_BUDGET:
-        E -= 1
-    return E, w * (2 * Q * P + E * _buffer_words(P, Q))
+class ClusterPlan(NamedTuple):
+    """One CTA's share of an element in the cluster body
+    (csrc/fused_apply.cu cluster_plan)."""
+
+    nzc: int        # pz-slabs a CTA: ceil(P / k)
+    ncc: int        # (qy, qx) columns a CTA: ceil(Q^2 / k)
+    a_words: int    # region A: max(9 P ncc, 9 nzc Q^2)
+    b_words: int    # region B: max(3 nzc P^2 + 6 nzc P Q, 9 Q ncc)
+    smem: int       # bytes: B, D, B^T, D^T (4 Q P words), A and B
+
+
+def cluster_plan(P: int, Q: int, w: int, k: int) -> ClusterPlan:
+    """The share of one of k CTAs at (P, Q) in words of `w` bytes."""
+    nzc, ncc = -(-P // k), -(-Q * Q // k)
+    a = max(9 * P * ncc, 9 * nzc * Q * Q)
+    b = max(3 * nzc * P * P + 6 * nzc * P * Q, 9 * Q * ncc)
+    return ClusterPlan(nzc, ncc, a, b, w * (4 * Q * P + a + b))
+
+
+def cluster_fewest(P: int, Q: int, w: int,
+                   optin: int = H100_SMEM_PER_BLOCK) -> int:
+    """The fewest CTAs, at most CLUSTER_MAX, whose share fits `optin`
+    bytes; 0 when none does (the gmem body's shapes)."""
+    return next((k for k in range(1, CLUSTER_MAX + 1)
+                 if cluster_plan(P, Q, w, k).smem <= optin), 0)
+
+
+def cluster_size(P: int, Q: int, w: int, nelem: int, sms: int = H100_SMS,
+                 optin: int = H100_SMEM_PER_BLOCK) -> int:
+    """The plan's CTAs a cluster: the fewest that fit, doubled (up to
+    CLUSTER_MAX) while a CTA's share exceeds CLUSTER_PAIR_SMEM or
+    nelem k < sms."""
+    k = cluster_fewest(P, Q, w, optin)
+    while k and 2 * k <= CLUSTER_MAX and (
+            cluster_plan(P, Q, w, k).smem > CLUSTER_PAIR_SMEM
+            or nelem * k < sms):
+        k *= 2
+    return k
 
 
 def generic_body(P: int, Q: int, dtype) -> int:
     """The generic tile's body at (P, Q) in `dtype` (GENERIC_BODIES):
-    above GENERIC_REG_CAP 0 smem, or 5 gmem where the smem body's tile
-    needs more than H100_SMEM_PER_BLOCK; else 4 block8x8 above
-    GENERIC_WARP_Q, else the first warp body whose caps hold (P, Q). A
-    mirror of the library's generic_body at the H100's opt-in limit, for
-    the tests and COUNTS; the launch never reads it."""
+    above GENERIC_REG_CAP 6 cluster where a cluster of at most CLUSTER_MAX
+    CTAs holds an element, else 5 gmem; 4 block8x8 above GENERIC_WARP_Q,
+    else the first warp body whose caps hold (P, Q). A mirror of the
+    library's generic_body at the H100's opt-in limit, for the tests and
+    COUNTS; the launch never reads it."""
     if P > GENERIC_REG_CAP or Q > GENERIC_REG_CAP:
         w = torch.empty((), dtype=dtype).element_size()
-        return 5 if _smem_tile(P, Q, w)[1] > H100_SMEM_PER_BLOCK else 0
+        return 6 if cluster_fewest(P, Q, w) else 5
     if Q > GENERIC_WARP_Q:
         return 4
     return next(b for b in (1, 2, 3)
@@ -295,11 +339,15 @@ def generic_body(P: int, Q: int, dtype) -> int:
 
 
 def generic_plan(P: int, Q: int, dtype, nelem: int, sms: int = H100_SMS,
-                 planes: int = 19) -> GenericPlan:
+                 planes: int = 19, cluster: int = 0) -> GenericPlan:
     """The generic tile's launch for `nelem` elements on a card of `sms`
     SMs; `planes`: the per-point streams a register body stages (19 in a
-    J.v that reads a stash, else 10). csrc/fused_apply.cu generic_launch,
+    J.v that reads a stash, else 10); `cluster` > 0: the cluster body's
+    size instead of cluster_size's. csrc/fused_apply.cu generic_launch,
     mirrored.
+
+    The cluster body: one element a cluster of k CTAs of GENERIC_THREADS
+    threads, each with cluster_plan's shared memory, nelem clusters.
 
     Register bodies (P, Q <= 8), in words: B, D as Q rows of PCV and B^T,
     D^T as P rows of QCV (the body's caps GENERIC_CAPS rounded up to 16
@@ -310,20 +358,19 @@ def generic_plan(P: int, Q: int, dtype, nelem: int, sms: int = H100_SMS,
     most nelem // (4 sms) (warp) or nelem // sms (block), at least 1, and
     shrinks while above GENERIC_BUDGET. A block tile's threads: its E Q^3
     points (or 3 E max(P, Q)^2 lines, if more) over the fewest passes of
-    at most 256, spread evenly, rounded up to a warp. The smem body: B and
-    D (2 Q P)
-    and per element max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3) words,
-    min(64, 256 // Q^3) elements (at least 1), fewer while above
-    GENERIC_BUDGET. The gmem body: B and D in shared memory, one element a
-    block at a time on min(nelem, GMEM_BLOCKS_PER_SM sms) blocks, each with
-    its slice of the workspace: one element's buffers A and B."""
+    at most 256, spread evenly, rounded up to a warp. The gmem body: B and
+    D (2 Q P words) in shared memory, one element a block at a time on
+    min(nelem, GMEM_BLOCKS_PER_SM sms) blocks, each with its slice of the
+    workspace: one element's buffers A and B, max(3 P^3, 9 P Q^2) +
+    max(6 P^2 Q, 9 Q^3) words."""
     w = torch.empty((), dtype=dtype).element_size()
     body = generic_body(P, Q, dtype)
     Q3 = Q ** 3
-    if body == 0:
-        E, smem = _smem_tile(P, Q, w)
-        return GenericPlan("generic_smem", GENERIC_BODIES[0], E,
-                           GENERIC_THREADS, smem, -(-nelem // E))
+    if body == 6:
+        k = cluster or cluster_size(P, Q, w, nelem, sms)
+        return GenericPlan("generic_cluster", GENERIC_BODIES[6], 1,
+                           GENERIC_THREADS, cluster_plan(P, Q, w, k).smem,
+                           nelem * k, 0, k, nelem)
     if body == 5:
         blocks = min(nelem, GMEM_BLOCKS_PER_SM * sms)
         return GenericPlan("generic_gmem", GENERIC_BODIES[5], 1,
@@ -423,6 +470,7 @@ def _library():
         ctypes.c_double, ctypes.c_double,      # the physics' (a, b)
         c_ptr,                                 # stream
         c_ptr, ctypes.c_longlong,              # gmem workspace, its bytes
+        c_int,                                 # cluster size (0: the plan's)
     ]
     lib.cps_fused_apply.restype = c_int
     lib.cps_fused_plan.argtypes = [
@@ -435,9 +483,13 @@ def _library():
 
 
 # cps_fused_plan's out[]: elems, threads, smem, tiles, path, min_blocks,
-# the generic tile's copy path and body, the gmem body's workspace bytes
-PLAN_WORDS = 9
-PATHS = ("async", "bulk", "generic_smem", "generic", "generic_gmem")
+# the generic tile's copy path and body, the gmem body's workspace bytes,
+# the cluster body's CTAs a cluster and clusters. Path 2, the shared-memory
+# body of the libraries before the cluster body, is named for
+# utils/compare_fused, which reads their plans.
+PLAN_WORDS = 11
+PATHS = ("async", "bulk", "generic_smem", "generic", "generic_gmem",
+         "generic_cluster")
 
 
 @dataclass(frozen=True)
@@ -448,12 +500,14 @@ class Plan:
     threads: int        # threads a block
     smem: int           # dynamic shared memory a block, bytes
     tiles: int          # tiles (blocks, or tiles walked by the blocks)
-    path: str           # "bulk" | "async" | "generic" | "generic_smem" |
-                        # "generic_gmem"
+    path: str           # "bulk" | "async" | "generic" | "generic_gmem" |
+                        # "generic_cluster"
     min_blocks: int     # resident blocks an SM that __launch_bounds__ asks
     copy: str | None = None   # the generic tile's streams: "bulk" | "async"
     body: str = ""      # the generic tile's body (GENERIC_BODIES)
     work: int = 0       # the gmem body's global workspace, bytes
+    cluster: int = 0    # the cluster body's CTAs a cluster (smem: a CTA's)
+    clusters: int = 0   # the cluster body's clusters
 
 
 def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
@@ -462,7 +516,7 @@ def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
     library; no launch)."""
     pw = pointwise(physics)
     lib = lib or _library()
-    out = (ctypes.c_longlong * PLAN_WORDS)(*([-1] * PLAN_WORDS))
+    out = (ctypes.c_longlong * PLAN_WORDS)(*([0] * PLAN_WORDS))
     r = lib.cps_fused_plan(
         pw.kernel_id, int(jacobian), basis.P, basis.Q,
         _DTYPES[qdata.dtype], qdata.shape[1], qdata.data_ptr(),
@@ -472,10 +526,10 @@ def plan(jacobian: bool, qdata, basis: Basis3D, stash_in=None,
                                   f"{basis.P}, Q={basis.Q} of {pw.name}")
     if r != 0:
         raise RuntimeError(f"fused_apply plan: cuda error {r}")
-    e, t, sm, tiles, path, mb, copy, body, work = out
+    e, t, sm, tiles, path, mb, copy, body, work, k, clusters = out
     return Plan(e, t, sm, tiles, PATHS[path], mb,
                 None if copy < 0 else ("async", "bulk")[copy],
-                GENERIC_BODIES.get(body, ""), work)
+                GENERIC_BODIES.get(body, ""), work, k, clusters)
 
 
 def _check(u, conn, qdata, basis: Basis3D, stash,
@@ -531,11 +585,11 @@ def _work_bytes(lib, kernel_id: int, jacobian: bool, P: int, Q: int,
 
 
 def _launch(jacobian: bool, u, conn, qdata, basis, stash, ve, phys,
-            pw: Pointwise, lib=None):
+            pw: Pointwise, lib=None, cluster: int = 0):
     """One launch of `lib`'s cps_fused_apply (the package's own library
     unless another is given), with the gmem body's workspace, from torch's
-    caching allocator on u's device, where it runs; raises on a CUDA
-    error."""
+    caching allocator on u's device, where it runs, and `cluster` (0: the
+    plan's cluster size); raises on a CUDA error."""
     lib = lib or _library()
     a, b = pw.params(phys)
     with torch.cuda.device(u.device):
@@ -555,7 +609,7 @@ def _launch(jacobian: bool, u, conn, qdata, basis, stash, ve, phys,
             None if stash is None else stash.data_ptr(), ve.data_ptr(),
             float(a), float(b), stream,
             None if work is None else work.data_ptr(),
-            0 if work is None else work.numel())
+            0 if work is None else work.numel(), int(cluster))
     if err != 0:
         raise RuntimeError(
             f"fused_apply kernel launch failed: cuda error {err}" if err > 0
@@ -563,6 +617,8 @@ def _launch(jacobian: bool, u, conn, qdata, basis, stash, ve, phys,
             "a block may have on this device" if err == -2
             else "fused_apply: the gmem body's workspace is missing or short"
             if err == -3
+            else f"fused_apply: cluster size {cluster} refused, or the card "
+            "holds no cluster of this launch" if err == -4
             else "fused_apply: no kernel for this (physics, P, Q)")
 
 
@@ -570,7 +626,7 @@ def launch_path(pw: Pointwise, basis: Basis3D, qdata,
                 stash_in=None) -> str:
     """The path a launch takes, as COUNTS.by_path counts it."""
     if is_generic(pw, basis.P, basis.Q):
-        return {0: "generic_smem", 5: "generic_gmem"}.get(
+        return {5: "generic_gmem", 6: "generic_cluster"}.get(
             generic_body(basis.P, basis.Q, qdata.dtype), "generic")
     return copy_path(qdata, stash_in)
 
@@ -582,10 +638,12 @@ def _device_kind(t: torch.Tensor) -> str:
 
 
 def residual(u, conn, qdata, basis: Basis3D, phys: Physics,
-             physics: str | Pointwise = "hyperFS"):
+             physics: str | Pointwise = "hyperFS", *, cluster: int = 0):
     """Residual E-vector and stash of `physics`: (ve (3, nelem, P3),
     stash (9, nelem, Q3) or None). CPU tensors -> plain torch; CUDA ->
-    kernel."""
+    kernel. `cluster` > 0 runs the cluster body at that many CTAs a
+    cluster instead of the plan's (a measurement's override: the solvers
+    never pass it; refused where another body runs)."""
     pw = pointwise(physics)
     if _device_kind(u) == "cpu":
         return residual_plain(u, conn, qdata, basis, phys, pw)
@@ -594,24 +652,26 @@ def residual(u, conn, qdata, basis: Basis3D, phys: Physics,
     stash = (torch.empty((9, nelem, basis.Q3), dtype=u.dtype,
                          device=u.device) if pw.stash else None)
     _check(u, conn, qdata, basis, stash, pw)
-    _launch(False, u, conn, qdata, basis, stash, ve, phys, pw)
+    _launch(False, u, conn, qdata, basis, stash, ve, phys, pw,
+            cluster=cluster)
     COUNTS.add("residual", basis, pw.name, launch_path(pw, basis, qdata),
                nelem)
     return ve, stash
 
 
 def jacobian(v, conn, qdata, stash, basis: Basis3D, phys: Physics,
-             physics: str | Pointwise = "hyperFS"):
+             physics: str | Pointwise = "hyperFS", *, cluster: int = 0):
     """Jacobian action E-vector (3, nelem, P3) of `physics` from the
     stashed gradu (None for a physics without one). CPU tensors -> plain
-    torch; CUDA -> kernel."""
+    torch; CUDA -> kernel. `cluster`: as residual takes it."""
     pw = pointwise(physics)
     if _device_kind(v) == "cpu":
         return jacobian_plain(v, conn, qdata, stash, basis, phys, pw)
     _check(v, conn, qdata, basis, stash, pw)
     ve = torch.empty((3, conn.shape[0], basis.P3), dtype=v.dtype,
                      device=v.device)
-    _launch(True, v, conn, qdata, basis, stash, ve, phys, pw)
+    _launch(True, v, conn, qdata, basis, stash, ve, phys, pw,
+            cluster=cluster)
     COUNTS.add("jacobian", basis, pw.name,
                launch_path(pw, basis, qdata, stash), conn.shape[0])
     return ve

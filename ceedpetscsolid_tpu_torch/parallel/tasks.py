@@ -125,7 +125,7 @@ def problem_task(rank, world, device, config: dict, jobs):
         elif name == "step":
             blocks, load = args
             u0 = (dp.to_owned(np.zeros((3, N))) if blocks is None else
-                  owned_from_jax(blocks, rank, prob.dtype, device))
+                  owned_from_jax(blocks, rank, prob.dtype, device=device))
             amg = dp.refresh_amg(u0, load) if dp.use_mg else None
             u1, rin, rn, its, step, unorm = dp.newton_step(u0, load,
                                                            amg_data=amg)

@@ -52,8 +52,10 @@ class Config:
 
     `mesh_file` (an Exodus-II file) replaces the box. On CUDA every degree
     runs the hand-written fused apply: above the shared memory of a block
-    its generic tile keeps an element's buffers in global memory (the gmem
-    body); a (P, Q) above its range (P or Q > 64) raises
+    its generic tile spreads an element over a thread-block cluster (the
+    cluster body) and, beyond what 8 CTAs hold, keeps an element's buffers
+    in global memory (the gmem body); a (P, Q) above its range (P or
+    Q > 64) raises
     NotImplementedError (ops/fused_apply.require_fits). The JAX package's
     `pc_precision` (bf16 MXU passes inside the V-cycle) has no counterpart:
     float32 contractions here run in IEEE f32 with TF32 off."""
@@ -548,7 +550,8 @@ class ElasticityProblem:
         to the problem's dtype and device, the load it converged at, and
         the largest final rnorm of the increments accepted before it. A
         caller checkpoints (res.u, load, that maximum) from the monitor;
-        a JAX package checkpoint is (interop.u_from_jax(u), load, floor).
+        a JAX package checkpoint is (interop.u_from_jax(u, device=...), load,
+        floor).
         """
         with self.log.stage("SNES Solve"):
             return self._solve_impl(monitor, u0, start_load, floor_atol0)

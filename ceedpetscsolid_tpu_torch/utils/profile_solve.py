@@ -7,7 +7,7 @@
 The problem is chip_smoke.py's phases 6, 7 and 11: hyperFS degree 4 on a
 box^3 box, -test, one increment, float32, ksp_rtol 1e-6 (float64: 1e-10);
 --degree 14 --box 5 and --degree 11 --box 6 --dtype float64 are phase
-19's (the generic tile's gmem body on the fine level); p-MG with
+19's (the generic tile's cluster body on the fine level); p-MG with
 logarithmic levels, native level quadrature and the Chebyshev coarse solve
 (--coarse chebyshev, the default), the AMG coarse solve (--coarse amg; its
 refresh split is printed too), or both. For each preconditioner it runs
@@ -37,7 +37,7 @@ from ..problem import Config, ElasticityProblem, select_device
 
 TOP = 8
 # a fused-apply kernel's name: cps::<body>_kernel<physics, jacobian, P, Q, T>,
-# cps::generic_tile_kernel<physics, jacobian, T> (and generic_gmem_kernel),
+# cps::generic_cluster_kernel<physics, jacobian, T> (and generic_gmem_kernel),
 # or cps::generic_reg_kernel<physics, jacobian, T, body>
 FUSED = re.compile(
     r"cps::\w+_kernel<\d+, (true|false), (?:\d+, \d+, )?\w+(?:, \d+)?>")

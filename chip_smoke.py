@@ -42,7 +42,7 @@ Phases, each of which raises on failure:
      tolerances: the pressure term at (P, Q), P = 2..5, Q = 2, 3, on the
      4^3 box and the scrambled 4^3 box; hyperFS and linElas at (7, 7),
      (8, 8), (6, 7), (2, 7) on the 3^3 box; hyperFS at (10, 10) on one
-     element (float64 and float32: the shared-memory body); the tile's
+     element (float64 and float32: the cluster body); the tile's
      edges (GENERIC_EDGES: one element, misaligned streams, tiles of two
      elements with a ragged last one); every body of the plan
      (fused_apply.GENERIC_BODIES) must run, each register body by both
@@ -52,17 +52,24 @@ Phases, each of which raises on failure:
      phase 14; hyperFS (7, 7) on 6^3, phase 15) and at (5, 2) on 24^3 and
      (7, 7) on 12^3, each shape held against the plain version as above
      and then timed, float32, call and device, beside the bound and the
-     launch plan; then the global-memory body ("gmem": where one
-     element's buffers exceed a block's shared memory) at (12, 12) f64
-     (every physics with a stash, linElas), (15, 15) f32 and the pressure
-     term's (21, 2) f64 on one element, streams one word off 16 bytes at
-     (12, 12), and a persistent grid with a ragged last round (7^3: 343
-     elements on 264 blocks), each against the plain version (the input's
-     amplitude divided by (P / 5)^2, so that gradu stays ~1e-2: a random
-     nodal field's gradient grows with P^2, and at O(1) strain float32
-     rounding is amplified in the plain version too); and timed where
-     phase 19 launches it, (15, 15) f32 on 5^3 and (12, 12) f64 on 6^3,
-     with its (9, 9) level (the smem body) on each;
+     launch plan; then the cluster body ("cluster": one element a
+     thread-block cluster of k CTAs, above P, Q = 8) where one element
+     exceeds a block's shared memory, at (12, 12) f64 (every physics with
+     a stash, linElas), (15, 15) f32 and the pressure term's (21, 2) f64
+     on one element, streams one word off 16 bytes at (12, 12) and 343
+     elements (more clusters than the card runs at once), and at (9, 9),
+     (11, 11) and (14, 14); the global-memory body ("gmem": where no
+     cluster of 8 CTAs holds an element) at (23, 23) f64 on one element
+     and on a persistent grid with a ragged last round (7^3: 343 elements
+     on 264 blocks); each against the plain version (the input's amplitude
+     divided by (P / 5)^2, so that gradu stays ~1e-2: a random nodal
+     field's gradient grows with P^2, and at O(1) strain float32 rounding
+     is amplified in the plain version too); and timed where phase 19
+     launches it, (15, 15) f32 on 5^3 and (12, 12) f64 on 6^3, with the
+     (9, 9) level on each, at the plan's cluster size and at the fewest
+     CTAs that fit, twice and four times as many (within 8), each size
+     held against the plain version first; the rows print the cluster
+     size, each CTA's shared memory and the cluster count;
   4. CUDA-event times (median of 20 calls after warm-up) of kernel and plain
      version, residual and J.v, at the 24^3 degree-4 shapes, in float32: of
      one call, the host's enqueue included, and of the device's work alone
@@ -164,10 +171,15 @@ Phases, each of which raises on failure:
      held to its float64 twin at phase 15's tolerances (SNES and KSP
      printed beside the twin's); hyperFS degree 11, float64, on the 6^3
      box (902,289 DoF, levels [1, 2, 4, 8, 11]) through
-     ElasticityProblem. Their fine levels, (15, 15) and (12, 12), run the
-     generic tile's gmem body, which each must launch in both modes; the
-     launches are printed per path (template instances: bulk, async;
-     generic: the register bodies, smem, gmem).
+     ElasticityProblem. Their fine levels, (15, 15) and (12, 12), and the
+     (9, 9) level run the generic tile's cluster body: the fine residual
+     and J.v and the (9, 9) J.v must each launch the body its plan names;
+     the launches are printed per path (template instances: bulk, async;
+     generic: the register bodies, cluster, gmem). Then the degree-14
+     float32 solve with Jacobi CG (-multigrid none), held to the p-MG
+     answer as phase 7 holds p-MG to phase 6's Jacobi solve: its solve
+     wall and, from a second solve under torch.profiler, its fused J.v
+     device ms.
 In phases 10-13 CG may exit on p.Ap <= 0 (the sign of an AMG cycle that
 stopped being SPD in float32) no more often than in the float64 twin
 (phase 12's clamp solves, whose tangents are themselves indefinite at the
@@ -247,18 +259,28 @@ GENERIC_EDGES = (("1^3", (1, 1, 1), 5, 2, PRESSURE, False),
                  ("11^3", (11, 11, 11), 3, 2, PRESSURE, False),
                  ("11^3", (11, 11, 11), 7, 1, PRESSURE, False),
                  ("7^3", (7, 7, 7), 3, 4, PRESSURE, False))
-# phase 3d's gmem shapes: (label, box faces, P, Q, physics, misaligned
-# streams); one element each, streams one word off 16 bytes, and 343
-# elements on a persistent grid of 264 blocks (two an SM), whose first 79
-# take a second element
-GMEM_EDGES = (("1^3", (1, 1, 1), 12, 12, "hyperFS", False),
-              ("1^3", (1, 1, 1), 12, 12, "linElas", False),
-              ("1^3", (1, 1, 1), 12, 12, "hyperSS", False),
-              ("1^3", (1, 1, 1), 12, 12, "hyperFSIncomp", False),
-              ("1^3", (1, 1, 1), 15, 15, "hyperFS", False),
-              ("1^3", (1, 1, 1), 21, 2, PRESSURE, False),
-              ("1^3 misaligned", (1, 1, 1), 12, 12, "hyperFS", True),
-              ("7^3", (7, 7, 7), 12, 12, "hyperFS", False))
+# phase 3d's cluster shapes: (label, box faces, P, Q, physics, misaligned
+# streams). Where one element exceeds a block's shared memory (the gmem
+# body's shapes before the cluster body: two CTAs or more an element), one
+# element each, streams one word off 16 bytes, and 343 elements (more
+# clusters than the card runs at once); one CTA an element's largest
+# shapes, (11, 11) f64 and (14, 14) f32, and phase 19's (9, 9) level
+CLUSTER_EDGES = (("1^3", (1, 1, 1), 12, 12, "hyperFS", False),
+                 ("1^3", (1, 1, 1), 12, 12, "linElas", False),
+                 ("1^3", (1, 1, 1), 12, 12, "hyperSS", False),
+                 ("1^3", (1, 1, 1), 12, 12, "hyperFSIncomp", False),
+                 ("1^3", (1, 1, 1), 15, 15, "hyperFS", False),
+                 ("1^3", (1, 1, 1), 21, 2, PRESSURE, False),
+                 ("1^3 misaligned", (1, 1, 1), 12, 12, "hyperFS", True),
+                 ("7^3", (7, 7, 7), 12, 12, "hyperFS", False),
+                 ("1^3", (1, 1, 1), 9, 9, "hyperFS", False),
+                 ("1^3", (1, 1, 1), 11, 11, "hyperFS", False),
+                 ("1^3", (1, 1, 1), 14, 14, "hyperFS", False))
+# phase 3d's gmem shapes, where no cluster of 8 CTAs holds an element
+# ((23, 23) f64; its f32 runs the cluster body): one element, and 343 on a
+# persistent grid of 264 blocks (two an SM), whose first 79 take a second
+GMEM_EDGES = (("1^3", (1, 1, 1), 23, 23, "hyperFS", False),
+              ("7^3", (7, 7, 7), 23, 23, "hyperFS", False))
 # phase 3d's times: (physics, box, P, Q, modes, dtype): where phase 14's,
 # 15's and 19's solves launch the generic tile (8^3, 6^3; 5^3 and 6^3),
 # then 24^3 and 12^3
@@ -315,7 +337,7 @@ DIST_CONFIG = dict(problem="hyperFS", degree=4, nu=0.3, E=1.0,
 DIST_RTOL = 1e-5
 DIST_WORLD = 4
 DIST_TOL = 1e-5                     # |G| parity and u (float32)
-KERNEL_PATHS = {"bulk", "async", "generic", "generic_smem", "generic_gmem"}
+KERNEL_PATHS = {"bulk", "async", "generic", "generic_gmem", "generic_cluster"}
 CU_SOURCE = "ceedpetscsolid_tpu_torch/csrc/fused_apply.cu"
 PROBE_SOURCE = "ceedpetscsolid_tpu_torch/csrc/gather_probe.cu"
 PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
@@ -403,13 +425,16 @@ def misaligned(t):
 
 def check_kernel(label, mesh, degree, device, phys, qextra=0,
                  physics="hyperFS", q1d=None, shift=False, plans=None,
-                 scale=1.0, report="float32"):
+                 scale=1.0, report="float32", cluster=0, dtypes=None):
     """Kernel vs plain on one mesh/degree (P = degree + 1, Q = P + qextra,
     or q1d), f64 and f32; returns the max abs errors (residual ve, J.v) in
-    `report`'s dtype, "float32" or "float64". A physics without a stash (linElas) must return none. With
-    `shift` the kernel reads qdata and the stash from copies one word off
-    16 bytes. `plans`, a list, gets the launch plan of each of the four
-    launches (fused_apply.plan). `scale`: make_case's."""
+    `report`'s dtype, "float32" or "float64". A physics without a stash
+    (linElas) must return none. With `shift` the kernel reads qdata and
+    the stash from copies one word off 16 bytes. `plans`, a list, gets the
+    launch plan of each of the four launches (fused_apply.plan). `scale`:
+    make_case's. `cluster` > 0: the cluster body at that many CTAs a
+    cluster (the plan's otherwise); `dtypes`: "float64" or "float32" alone
+    (both by default)."""
     import torch
 
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
@@ -423,33 +448,41 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
     conn, b64 = f.restr.conn, f.basis
     ve0, st0 = fa.residual_plain(u, conn, q, b64, phys, physics)
     jv0 = fa.jacobian_plain(v, conn, q, st0, b64, phys, physics)
-    ve, st = fa.residual(u, conn, moved(q), b64, phys, physics)
-    jv = fa.jacobian(v, conn, moved(q), moved(st0), b64, phys, physics)
-    torch.cuda.synchronize()
-    if (st is None) != (st0 is None):
-        FAILED.append(f"{label}: kernel stash {st is None}, "
-                      f"plain {st0 is None}")
-    pairs = [("residual ve", ve, ve0), ("stash", st, st0), ("J.v ve", jv, jv0)]
-    pairs = [(nm, a, b) for nm, a, b in pairs if b is not None]
-    e64 = {nm: compare(f"{label} f64 {nm}", a, b, True) for nm, a, b in pairs}
-    if plans is not None:
-        plans += [fa.plan(False, moved(q), b64, None, physics),
-                  fa.plan(True, moved(q), b64, moved(st0), physics)]
-    f32 = torch.float32
-    b32 = Basis3D.create(b64.P, b64.Q, "gauss", f32, device=device)
-    q32 = moved(q.to(f32))
-    ve, st = fa.residual(u.to(f32), conn, q32, b32, phys, physics)
-    jv = fa.jacobian(v.to(f32), conn, q32, None if st0 is None else
-                     moved(st0.to(f32)), b32, phys, physics)
-    torch.cuda.synchronize()
-    if plans is not None:
-        st32 = None if st0 is None else moved(st0.to(f32))
-        plans += [fa.plan(False, q32, b32, None, physics),
-                  fa.plan(True, q32, b32, st32, physics)]
-    e_r = compare(f"{label} f32 residual ve", ve, ve0, False)
-    if st0 is not None:
-        compare(f"{label} f32 stash", st, st0, False)
-    e_j = compare(f"{label} f32 J.v ve", jv, jv0, False)
+    kw = dict(cluster=cluster)
+    e64 = {"residual ve": None, "J.v ve": None}
+    if dtypes in (None, "float64"):
+        ve, st = fa.residual(u, conn, moved(q), b64, phys, physics, **kw)
+        jv = fa.jacobian(v, conn, moved(q), moved(st0), b64, phys, physics,
+                         **kw)
+        torch.cuda.synchronize()
+        if (st is None) != (st0 is None):
+            FAILED.append(f"{label}: kernel stash {st is None}, "
+                          f"plain {st0 is None}")
+        pairs = [("residual ve", ve, ve0), ("stash", st, st0),
+                 ("J.v ve", jv, jv0)]
+        pairs = [(nm, a, b) for nm, a, b in pairs if b is not None]
+        e64 = {nm: compare(f"{label} f64 {nm}", a, b, True)
+               for nm, a, b in pairs}
+        if plans is not None:
+            plans += [fa.plan(False, moved(q), b64, None, physics),
+                      fa.plan(True, moved(q), b64, moved(st0), physics)]
+    e_r = e_j = None
+    if dtypes in (None, "float32"):
+        f32 = torch.float32
+        b32 = Basis3D.create(b64.P, b64.Q, "gauss", f32, device=device)
+        q32 = moved(q.to(f32))
+        ve, st = fa.residual(u.to(f32), conn, q32, b32, phys, physics, **kw)
+        jv = fa.jacobian(v.to(f32), conn, q32, None if st0 is None else
+                         moved(st0.to(f32)), b32, phys, physics, **kw)
+        torch.cuda.synchronize()
+        if plans is not None:
+            st32 = None if st0 is None else moved(st0.to(f32))
+            plans += [fa.plan(False, q32, b32, None, physics),
+                      fa.plan(True, q32, b32, st32, physics)]
+        e_r = compare(f"{label} f32 residual ve", ve, ve0, False)
+        if st0 is not None:
+            compare(f"{label} f32 stash", st, st0, False)
+        e_j = compare(f"{label} f32 J.v ve", jv, jv0, False)
     if report == "float64":
         return e64["residual ve"], e64["J.v ve"]
     return e_r, e_j
@@ -995,10 +1028,12 @@ def main():
         bodies' cap (a random nodal field's gradient grows with P^2)."""
         return (5 / P) ** 2 if P > fa.GENERIC_REG_CAP else 1.0
 
-    # the gmem body (GMEM_EDGES), f64 there and f32 where it exceeds a
-    # block too; its persistent grid must have run a ragged round
+    # the cluster body (CLUSTER_EDGES) and the gmem body (GMEM_EDGES), f64
+    # and f32; the cluster body one cluster an element at the plan's size,
+    # the gmem body's persistent grid a ragged round
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for label, faces, P, Q, ph, shift in GMEM_EDGES:
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for label, faces, P, Q, ph, shift in CLUSTER_EDGES + GMEM_EDGES:
         before = len(gplans)
         check_kernel(f"{label} (P,Q)=({P},{Q}) {ph}", box_mesh(faces),
                      P - 1, dev, phys, physics=ph, q1d=Q, plans=gplans,
@@ -1009,16 +1044,24 @@ def main():
                     p_.tiles == min(nelem, fa.GMEM_BLOCKS_PER_SM * sms)
                     and p_.work > 0):
                 raise AssertionError(f"{label} gmem plan {p_}")
+            if p_.body == "cluster" and not (
+                    p_.clusters == nelem and p_.tiles == nelem * p_.cluster
+                    and 1 <= p_.cluster <= fa.CLUSTER_MAX
+                    and p_.smem <= optin and p_.work == 0):
+                raise AssertionError(f"{label} cluster plan {p_}")
     ragged = [p_ for p_ in gplans if p_.body == "gmem"
               and p_.tiles == fa.GMEM_BLOCKS_PER_SM * sms]
     log(f"    gmem persistent grids of {fa.GMEM_BLOCKS_PER_SM * sms} blocks "
         f"over 343 elements: {len(ragged)} launches")
+    ks = sorted({p_.cluster for p_ in gplans if p_.body == "cluster"})
+    log(f"    cluster sizes the plans chose: {ks}")
     if FAILED:
         raise AssertionError(f"kernel disagrees with plain version: {FAILED}")
     paths = dict(fa.COUNTS.by_path)
     log(f"    launches per path: {paths}")
     if set(paths) != {(m_, p_) for m_ in ("residual", "jacobian")
-                      for p_ in ("generic", "generic_smem", "generic_gmem")}:
+                      for p_ in ("generic", "generic_cluster",
+                                 "generic_gmem")}:
         raise AssertionError(f"phase 3d ran another path: {paths}")
     if not ragged:
         raise AssertionError("phase 3d ran no ragged persistent gmem grid")
@@ -1029,8 +1072,8 @@ def main():
     log(f"    bodies and copy paths that ran: {bodies}")
     log(f"    (body, elements a tile > 1, fewer tiles than SMs): {edges}")
     regs = [b_ for b_ in fa.GENERIC_BODIES.values()
-            if b_ not in ("smem", "gmem")]
-    need_bodies = {("smem", None), ("gmem", None)} | {
+            if b_ not in ("smem", "gmem", "cluster")]
+    need_bodies = {("cluster", None), ("gmem", None)} | {
         (b_, c_) for b_ in regs for c_ in ("bulk", "async")}
     need_edges = {(b_, m_, not m_) for b_ in regs for m_ in (True, False)}
     if not need_bodies <= set(bodies) or not need_edges <= set(edges):
@@ -1071,7 +1114,37 @@ def main():
         plans = {mode: fa.plan(mode == "jacobian", q, b,
                                st if mode == "jacobian" else None, ph)
                  for mode in modes}
-        gtimes3d[(ph, b.P, b.Q, box)] = (t, d, bounds, plans, errs, dname)
+        # the cluster body also at the fewest CTAs that fit, twice and four
+        # times as many (within 8), each held against the plain version
+        # first
+        by_k = {}
+        w = dtype.itemsize
+        k0 = fa.cluster_fewest(P, Q, w)
+        for k in ((k0, 2 * k0, 4 * k0) if plans[modes[0]].body == "cluster"
+                  else ()):
+            if k > fa.CLUSTER_MAX:
+                continue
+            check_kernel(f"{box}^3 (P,Q)=({P},{Q}) {ph} k={k}",
+                         box_mesh((box,) * 3), P - 1, dev, phys, physics=ph,
+                         q1d=Q, scale=scale(P), cluster=k, dtypes=dname)
+            if FAILED:
+                raise AssertionError("kernel disagrees with plain version: "
+                                     f"{FAILED}")
+            kcalls = {
+                "residual": lambda: fa.residual(u, conn, q, b, phys, ph,
+                                                cluster=k),
+                "jacobian": lambda: fa.jacobian(v, conn, q, st, b, phys, ph,
+                                                cluster=k)}
+            by_k[k] = {}
+            for mode in modes:
+                g = fa.generic_plan(P, Q, dtype, f.nelem, sms, 19 if mode ==
+                                    "jacobian" else 10, cluster=k)
+                dk = device_ms(kcalls[mode], reps=10, inner=1)
+                by_k[k][mode] = {"device_ms": dk,
+                                 "bound_share": bounds[mode][0] / dk,
+                                 "smem": g.smem, "clusters": g.clusters}
+        gtimes3d[(ph, b.P, b.Q, box)] = (t, d, bounds, plans, errs, dname,
+                                         by_k)
         for mode in modes:
             bd, by = bounds[mode]
             p = plans[mode]
@@ -1081,7 +1154,13 @@ def main():
                 f"bound {bd:.4f} ms ({by}), share {bd / d[mode]:.3f}; "
                 f"{p.body} {p.copy}: {p.elems} element(s) x {p.tiles} "
                 f"tiles, {p.threads} threads, {p.smem} bytes, workspace "
-                f"{p.work} bytes")
+                f"{p.work} bytes" + (f", k={p.cluster} x {p.clusters} "
+                                     "clusters" if p.cluster else ""))
+            for k, x in by_k.items():
+                x = x[mode]
+                log(f"        at k={k}: {x['device_ms']:.4f} ms device, share "
+                    f"{x['bound_share']:.3f}; {x['smem']} bytes a CTA x "
+                    f"{k * x['clusters']} CTAs, {x['clusters']} clusters")
         del f, q, u, v, st, calls
     torch.cuda.empty_cache()
 
@@ -1145,11 +1224,14 @@ def main():
         last_paths.update(fa.COUNTS.by_path)
         last_shapes.clear()
         last_shapes.update(fa.COUNTS.by_shape)
+        last_pq_paths.clear()
+        last_pq_paths.update(fa.COUNTS.by_pq_path)
         return prob, info, counts, prob.mms_error(info.u), \
             prob.strain_energy(info.u)
 
     last_paths = {}         # the last solve's fused-apply launches per path
     last_shapes = {}        # ... per (physics, mode, P, Q, elements)
+    last_pq_paths = {}      # ... per (physics, mode, P, Q, path)
     # the main paths' generic-tile launches per (physics, mode, P, Q,
     # elements), from the solves that run it (phases 12, 14, 15)
     generic_shapes = {}
@@ -1676,7 +1758,9 @@ def main():
                          if ph == "hyperFS" and mm == m)
                   for m in ("residual", "jacobian")}
 
-    # ---- 19. the high degrees: the generic tile's gmem body in solves -----
+    # ---- 19. the high degrees: the generic tile's cluster body in solves ---
+    from ceedpetscsolid_tpu_torch.utils.profile_solve import (
+        FUSED, device_events)
     t19 = time.perf_counter()
     high = dict(multigrid="logarithmic", level_quadrature="native",
                 coarse_solve="amg", by_physics=True)
@@ -1692,6 +1776,8 @@ def main():
             last_paths.update(fa.COUNTS.by_path)
             last_shapes.clear()
             last_shapes.update(fa.COUNTS.by_shape)
+            last_pq_paths.clear()
+            last_pq_paths.update(fa.COUNTS.by_pq_path)
             err, energy = prob.mms_error(info.u), prob.strain_energy(info.u)
             tag += f", cli.main {' '.join(HIGH_DEGREE_FLAGS)} -> rc {rc}"
             # elasticity.c:806-811: -test returns 1 above 5% MMS error
@@ -1707,13 +1793,47 @@ def main():
         need(tag, c19, [("hyperFS", "residual", P, P),
                         ("hyperFS", "jacobian", P, P),
                         ("hyperFS", "jacobian", 9, 9)])
-        if min(paths19.get((m_, "generic_gmem"), 0)
-               for m_ in ("residual", "jacobian")) < 1:
-            raise AssertionError(f"{tag} did not launch the gmem body in "
-                                 f"both modes: {paths19}")
+        # the fine level's residual and J.v and the (9, 9) level's J.v ran
+        # the body their plans name
+        bodies = {(m_, p_): fa.generic_plan(p_, p_, dtype, box ** 3).path
+                  for m_, p_ in (("residual", P), ("jacobian", P),
+                                 ("jacobian", 9))}
+        ran = {k_: last_pq_paths.get(("hyperFS", k_[0], k_[1], k_[1], b_), 0)
+               for k_, b_ in bodies.items()}
+        log(f"    bodies the plans name: {bodies}; their launches: {ran}")
+        if min(ran.values()) < 1:
+            raise AssertionError(f"{tag} did not launch the bodies its plans "
+                                 f"name: {bodies}, {last_pq_paths}")
         if dtype == torch.float32:
             check_twin(tag, box, info, err, energy, f32_tolerances=True,
                        du_slack=True, degree=deg, **high)
+            # Jacobi CG on the same problem, held to the p-MG answer as
+            # phase 7 holds p-MG to phase 6's Jacobi; then one more solve
+            # under torch.profiler for its fused J.v device time
+            pj, ij, cj, ej, enj = solve(dtype, box, degree=deg,
+                                        f32_tolerances=True, by_physics=True)
+            add_generic(last_shapes)
+            report(f"[19] hyperFS p{deg} {box}^3 {dname}, Jacobi CG:", pj, ij,
+                   cj, ej, enj)
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                pj.solve()
+                torch.cuda.synchronize()
+            jv_ms = sum(t_ for n_, t_ in device_events(prof)
+                        if (hit := FUSED.search(n_)) and hit.group(1) == "true"
+                        ) * 1e-3
+            log(f"    Jacobi: solve {ij.solve_time:.3f} s wall, fused J.v "
+                f"{jv_ms:.1f} ms device (a second solve, profiled) "
+                f"({card}); vs p-MG: KSP {ij.ksp_iters} vs "
+                f"{info.ksp_iters}, MMS rel-L2 {ej:.6e} vs {err:.6e}, energy "
+                f"{enj:.10e} vs {energy:.10e}")
+            if not (abs(ej - err) <= 1e-3 * err
+                    and abs(enj - energy) <= 1e-3 * abs(energy)):
+                raise AssertionError(f"{tag}: Jacobi answer disagrees with "
+                                     "the p-MG answer")
+            main_counts.append(cj)
+            del pj, ij
         main_counts.append(c19)
         del prob, info
         torch.cuda.empty_cache()
@@ -1744,7 +1864,7 @@ def main():
         no main path launches, goes under "larger_mesh" of the entries of
         its (physics, mode, P, Q)."""
         rows, larger = {}, {}
-        for (ph, P, Q, box), (t, d, bd, pl, e, dn) in gtimes3d.items():
+        for (ph, P, Q, box), (t, d, bd, pl, e, dn, bk) in gtimes3d.items():
             for i, mode in enumerate(("residual", "jacobian")):
                 if mode not in t:
                     continue
@@ -1759,7 +1879,11 @@ def main():
                              "tiles": pl[mode].tiles,
                              "threads": pl[mode].threads,
                              "smem": pl[mode].smem,
-                             "workspace": pl[mode].work}}
+                             "workspace": pl[mode].work,
+                             "cluster": pl[mode].cluster,
+                             "clusters": pl[mode].clusters},
+                    **({"by_cluster_size": {k: x[mode] for k, x in
+                                            bk.items()}} if bk else {})}
                 key = (ph, mode, P, Q, box ** 3)
                 n_ = generic_shapes.get(key, 0)
                 if n_:

@@ -53,8 +53,9 @@ def _p1_pair(name, kind, n, seed=3):
     jst = None if jst is None else jf.stash_view(jst)
     jA = np.asarray(jax.jit(lambda q, s: jem(
         jmod.jacobian_qf, JPHYS, jf.fine.basis, jnp.float64)(q, s))(jq, jst))
-    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3)
-    tst = None if jst is None else interop.stash_from_jax(jst, tf.nelem, tf.Q3)
+    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3, device="cpu")
+    tst = None if jst is None else interop.stash_from_jax(
+        jst, tf.nelem, tf.Q3, device="cpu")
     tA = make_element_matrices(tmod.jacobian_qf, TPHYS, tf.basis,
                                torch.float64)(tq, tst)
     s = tf.space

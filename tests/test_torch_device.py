@@ -75,12 +75,13 @@ def test_cpu_factory_residual_matches_jax(monkeypatch, kind, n, degree):
         jnp.asarray(u), jq, jf.fine.srestr, jf.fine.sgrad)
     tq = tf.compute_qdata()
     np.testing.assert_allclose(
-        tq.numpy(), np.asarray(interop.qdata_from_jax(jq, tf.nelem, tf.Q3)),
+        tq.numpy(), np.asarray(interop.qdata_from_jax(jq, tf.nelem, tf.Q3,
+                                                     device="cpu")),
         rtol=1e-12, atol=1e-14 * float(np.abs(np.asarray(jq)).max()))
     tr, tst = tf.make_residual_structured("hyperFS", TPHYS)(
-        interop.u_from_jax(u), tq)
+        interop.u_from_jax(u, device="cpu"), tq)
     for got, ref in ((tr, np.asarray(jr)),
                      (tst, np.asarray(interop.stash_from_jax(
-                         jst, tf.nelem, tf.Q3)))):
+                         jst, tf.nelem, tf.Q3, device="cpu")))):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12,
                                    atol=1e-14 * np.abs(ref).max())

@@ -124,7 +124,8 @@ def test_newton_step_matches_jax_distributed(tmp_path):
     u1, rnorm_in, rnorm, iters, _, _ = dp.newton_step(u0, 1.0)
     blocks = np.asarray(u0)
     assert np.array_equal(interop.owned_to_jax(
-        [interop.owned_from_jax(blocks, r) for r in range(4)]), blocks)
+        [interop.owned_from_jax(blocks, r, device="cpu")
+         for r in range(4)]), blocks)
     out = launch.run(tasks.problem_task, 4, "gloo", "cpu", tmp_path,
                      args=(LINELAS, [("step", (blocks, 1.0))]))
     got = out["step"]

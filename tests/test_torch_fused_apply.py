@@ -59,10 +59,10 @@ def test_plain_matches_jax_xla_f64(kind, n, degree):
     jjv = jf.make_jacobian_structured(jhfs.jacobian_planes, JPHYS)(
         jnp.asarray(v), jq, jst, jf.fine.srestr, jf.fine.sgrad)
 
-    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3)
-    jst_t = interop.stash_from_jax(jst, tf.nelem, tf.Q3)
-    tr, tst, tjv = _port_apply(tf, tq, interop.u_from_jax(u),
-                               interop.u_from_jax(v), jst_t)
+    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3, device="cpu")
+    jst_t = interop.stash_from_jax(jst, tf.nelem, tf.Q3, device="cpu")
+    tr, tst, tjv = _port_apply(tf, tq, interop.u_from_jax(u, device="cpu"),
+                               interop.u_from_jax(v, device="cpu"), jst_t)
     for got, ref in ((tr, jr), (tst, jst_t), (tjv, jjv)):
         ref = np.asarray(ref)
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12,
@@ -99,12 +99,13 @@ def test_physics_plain_matches_jax_xla_f64(physics, kind, n, degree):
     jjv = jf.make_jacobian_structured(
         getattr(jmod, pre + "jacobian_planes"), JPHYS)(
         jnp.asarray(v), jq, jst, jf.fine.srestr, jf.fine.sgrad)
-    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3)
+    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3, device="cpu")
     assert (jst is None) == (physics == "linElas")
-    jst_t = None if jst is None else interop.stash_from_jax(jst, tf.nelem,
-                                                            tf.Q3)
-    tr, tst, tjv = _port_apply(tf, tq, interop.u_from_jax(u),
-                               interop.u_from_jax(v), jst_t, physics)
+    jst_t = None if jst is None else interop.stash_from_jax(
+        jst, tf.nelem, tf.Q3, device="cpu")
+    tr, tst, tjv = _port_apply(tf, tq, interop.u_from_jax(u, device="cpu"),
+                               interop.u_from_jax(v, device="cpu"), jst_t,
+                               physics)
     assert (tst is None) == (jst is None)
     pairs = [(tr, jr), (tjv, jjv)] + ([] if jst is None else [(tst, jst_t)])
     for got, ref in pairs:
@@ -133,10 +134,13 @@ def test_plain_matches_jax_pallas_interpret_f32(kind, n, degree):
         v32, qd_s, s_pl, plfac.fine.srestr, plfac.fine.sgrad)
 
     f32 = torch.float32
-    tq = interop.qdata_from_jax(qd_s, tf.nelem, tf.Q3, dtype=f32)
-    s_pl_t = interop.stash_from_jax(s_pl, tf.nelem, tf.Q3, dtype=f32)
-    tr, tst, tjv = _port_apply(tf, tq, interop.u_from_jax(u32, dtype=f32),
-                               interop.u_from_jax(v32, dtype=f32), s_pl_t)
+    tq = interop.qdata_from_jax(qd_s, tf.nelem, tf.Q3, dtype=f32,
+                                device="cpu")
+    s_pl_t = interop.stash_from_jax(s_pl, tf.nelem, tf.Q3, dtype=f32,
+                                    device="cpu")
+    tr, tst, tjv = _port_apply(
+        tf, tq, interop.u_from_jax(u32, dtype=f32, device="cpu"),
+        interop.u_from_jax(v32, dtype=f32, device="cpu"), s_pl_t)
     np.testing.assert_allclose(tr.numpy(), np.asarray(r_pl),
                                rtol=2e-5, atol=1e-8)
     np.testing.assert_allclose(tst.numpy(), s_pl_t.numpy(),
@@ -203,7 +207,7 @@ def test_kernel_input_checks():
     assert fused_apply.is_generic("hyperFSIncomp-pressure", 3, 3)
     fused_apply._check(u, conn, q, b, st, "hyperFSIncomp-pressure")
     # a generic tile above what a block's shared memory holds is accepted:
-    # (12, 12) in float64 runs the gmem body
+    # (12, 12) in float64 runs the cluster body, at two CTAs or more
     tb = TFactory(tbuild(box_mesh((1, 1, 1)), 11), dtype=torch.float64,
                   device="cpu")
     fused_apply._check(torch.zeros((3, tb.space.num_nodes),
@@ -211,7 +215,7 @@ def test_kernel_input_checks():
                        tb.restr.conn, tb.compute_qdata(), tb.basis,
                        torch.zeros((9, 1, 12 ** 3), dtype=torch.float64))
     assert fused_apply.launch_path(fused_apply.pointwise("hyperFS"), tb.basis,
-                                   tb.compute_qdata()) == "generic_gmem"
+                                   tb.compute_qdata()) == "generic_cluster"
     tp = TFactory(tbuild(tm, 2), dtype=torch.float64, device="cpu", q1d=1)
     fused_apply._check(u, tp.restr.conn, tp.compute_qdata(), tp.basis,
                        torch.zeros((9, tp.nelem, 1), dtype=torch.float64),
@@ -226,11 +230,12 @@ def test_kernel_input_checks():
     # 24^3: 13,824 // 528 = 26, so E = 32 // 8 = 4
     (5, 2, torch.float32, 13_824, "warp6x2", 4, 32, 16_240),
     (7, 7, torch.float32, 1_728, "block8x8", 1, 192, 52_056),
-    # above the register cap: the shared-memory body, one element a tile
-    (10, 10, torch.float32, 1, "smem", 1, 256, 72_800),
-    (10, 10, torch.float64, 1, "smem", 1, 256, 145_600),
-    (11, 11, torch.float64, 1, "smem", 1, 256, 193_600),
-    (14, 14, torch.float32, 1, "smem", 1, 256, 199_136),
+    # above the register cap: the cluster body, one element a cluster of
+    # 8 CTAs (one element leaves the SMs short of CTAs); bytes a CTA
+    (10, 10, torch.float32, 1, "cluster", 1, 256, 16_000),
+    (10, 10, torch.float64, 1, "cluster", 1, 256, 32_000),
+    (11, 11, torch.float64, 1, "cluster", 1, 256, 38_720),
+    (14, 14, torch.float32, 1, "cluster", 1, 256, 31_360),
     # phase 14's 8^3 levels and phase 15's 6^3 fine level: one element a
     # tile, a block each
     (5, 2, torch.float32, 512, "warp6x2", 1, 32, 4_516),
@@ -262,18 +267,21 @@ def test_generic_plan_counted_by_hand(P, Q, dtype, nelem, body, elems,
     (warp3x2: PCV = QCV = 4): A = B = 162, B/D 40: 16 + 4 (40 + 228 + 324)
     = 2,384; (2, 2): A = 108, B = 72, B/D 32: 16 + 4 (32 + 228 + 180) =
     1,776, in f64 (PCV = 4, QCV = 2 doubles; planes of 8 + 2) 16 + 8 (24 +
-    190 + 180) = 3,168. Above P, Q = 8 the smem body: B and D (2 Q P
-    words), per element max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3) words,
-    one element once Q^3 >= 256: (10, 10) f32 4 (200 + 18,000) = 72,800
-    bytes."""
+    190 + 180) = 3,168. Above P, Q = 8 the cluster body: one element a
+    cluster of k CTAs, each with B, D, B^T, D^T (4 Q P words), region A
+    max(9 P ncc, 9 nzc Q^2) and region B max(3 nzc P^2 + 6 nzc P Q,
+    9 Q ncc), nzc = ceil(P / k), ncc = ceil(Q^2 / k): (10, 10) f32 at
+    k = 8, nzc = 2, ncc = 13: 4 (400 + 1,800 + 1,800) = 16,000 bytes;
+    (11, 11) f64, nzc = 2, ncc = 16: 8 (484 + 2,178 + 2,178) = 38,720."""
     g = fused_apply.generic_plan(P, Q, dtype, nelem)
     assert (g.body, g.elems, g.threads, g.smem) == (body, elems, threads,
                                                     smem)
-    assert g.tiles == -(-nelem // elems)
-    assert g.path == ("generic_smem" if body == "smem" else "generic")
+    cluster = body == "cluster"
+    assert g.tiles == -(-nelem // elems) * (8 if cluster else 1)
+    assert g.path == ("generic_cluster" if cluster else "generic")
     assert g.work == 0
     fused_apply.require_fits("hyperFS", P, Q)
-    if body != "smem":
+    if not cluster:
         # a residual stages qdata's 10 planes alone
         stride = g.smem - fused_apply.generic_plan(P, Q, dtype, nelem,
                                                    planes=10).smem
@@ -292,10 +300,12 @@ def test_generic_plan_counted_by_hand(P, Q, dtype, nelem, body, elems,
 ])
 def test_gmem_above_a_block(P, Q, dtype, smem):
     """A generic tile whose one element needs more shared memory than an
-    H100 block may have (232,448 bytes; `smem`: the smem body's bytes,
+    H100 block may have (232,448 bytes; `smem`: one block's bytes,
     2 Q P + max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3) words) is accepted
-    and planned on the gmem body, B and D alone in shared memory; P and Q
-    outside the generic tile's range are refused."""
+    and planned on the cluster body at two CTAs or more; the gmem body,
+    B and D alone in shared memory, takes only what no cluster of 8 CTAs
+    holds (P = Q = 24 in this dtype, or 30 in f32); P and Q outside the
+    generic tile's range are refused."""
     w = dtype.itemsize
     assert smem == w * (2 * Q * P + max(3 * P ** 3, 9 * P * Q * Q)
                         + max(6 * P * P * Q, 9 * Q ** 3))
@@ -303,8 +313,12 @@ def test_gmem_above_a_block(P, Q, dtype, smem):
     fused_apply.require_fits("hyperFSIncomp-pressure", P, Q)
     fused_apply.require_fits("hyperFS", P, Q)
     g = fused_apply.generic_plan(P, Q, dtype, 1)
+    assert (g.path, g.body, g.elems) == ("generic_cluster", "cluster", 1)
+    assert fused_apply.cluster_fewest(P, Q, w) == 2
+    big = 24 if w == 8 else 30
+    g = fused_apply.generic_plan(big, big, dtype, 1)
     assert (g.path, g.body, g.elems, g.smem) == ("generic_gmem", "gmem", 1,
-                                                 w * 2 * Q * P)
+                                                 w * 2 * big * big)
     with pytest.raises(NotImplementedError, match="2 <= P <= 64"):
         fused_apply.require_fits("hyperFS", 65, Q)
     # a template instance is never the generic tile's

@@ -312,26 +312,33 @@ def test_generic_configurations_construct(cuda):
 
 
 # the shapes on either side of the block limit: (physics, box faces,
-# degree, Q, dtype, body). The smem body's largest one-element tiles,
-# (11, 11) float64 (193,600 bytes) and (14, 14) float32 (199,136 bytes);
-# the gmem body's shapes, one element each, and 343 elements on a
-# persistent grid of 264 blocks (two an SM), whose first 79 blocks take a
-# second element
+# degree, Q, dtype, body). The cluster body at one CTA an element's
+# largest shapes, (11, 11) float64 and (14, 14) float32, and above them,
+# where one element needs two CTAs ((12, 12) float64, (15, 15) float32,
+# the pressure term's (21, 2) float64: the gmem body's shapes before the
+# cluster body), one element each and 343 elements; the gmem body where
+# no cluster of 8 CTAs holds an element, (23, 23) float64 and (29, 29)
+# float32, and 343 elements on a persistent grid of 264 blocks (two an
+# SM), whose first 79 blocks take a second element
 BLOCK_LIMIT_CASES = (
-    ("hyperFS", (1, 1, 1), 10, 11, torch.float64, "smem"),
-    ("hyperFS", (1, 1, 1), 13, 14, torch.float32, "smem"),
-    ("hyperFS", (1, 1, 1), 11, 12, torch.float64, "gmem"),
-    ("hyperFS", (7, 7, 7), 11, 12, torch.float64, "gmem"),
-    ("hyperFS", (1, 1, 1), 14, 15, torch.float32, "gmem"),
-    ("linElas", (1, 1, 1), 14, 15, torch.float32, "gmem"),
-    ("hyperFSIncomp-pressure", (1, 1, 1), 20, 2, torch.float64, "gmem"))
+    ("hyperFS", (1, 1, 1), 10, 11, torch.float64, "cluster"),
+    ("hyperFS", (1, 1, 1), 13, 14, torch.float32, "cluster"),
+    ("hyperFS", (1, 1, 1), 11, 12, torch.float64, "cluster"),
+    ("hyperFS", (7, 7, 7), 11, 12, torch.float64, "cluster"),
+    ("hyperFS", (1, 1, 1), 14, 15, torch.float32, "cluster"),
+    ("linElas", (1, 1, 1), 14, 15, torch.float32, "cluster"),
+    ("hyperFSIncomp-pressure", (1, 1, 1), 20, 2, torch.float64, "cluster"),
+    ("hyperFS", (1, 1, 1), 22, 23, torch.float64, "gmem"),
+    ("hyperFS", (7, 7, 7), 22, 23, torch.float64, "gmem"),
+    ("hyperFS", (1, 1, 1), 28, 29, torch.float32, "gmem"))
 
 
 def test_gmem_matches_plain_above_a_block(cuda):
-    """The generic tile's gmem body, where one element's buffers need more
-    shared memory than an H100 block may have ((12, 12) and the pressure
-    term's (21, 2) in float64, (15, 15) in float32), and the smem body just
-    below that limit ((11, 11) float64, (14, 14) float32), against the
+    """The generic tile above a block's shared memory: the cluster body
+    where one element needs two CTAs ((12, 12) and the pressure term's
+    (21, 2) in float64, (15, 15) in float32) and at one CTA just below
+    ((11, 11) float64, (14, 14) float32), the gmem body where no cluster
+    of 8 CTAs holds one ((23, 23) float64, (29, 29) float32), against the
     plain float64 version, residual (with the stash) and J.v: float64 to
     1e-12 of max|ref|, float32 at the rule of test_kernel_matches_plain.
     The input amplitude shrinks with P^2, which the gradient of a random
@@ -363,13 +370,15 @@ def test_gmem_matches_plain_above_a_block(cuda):
             g = fa.generic_plan(P, Q, dtype, f.nelem, sms,
                                 19 if jac and pw.stash else 10)
             assert (p.path, p.body, p.elems, p.threads, p.smem, p.tiles,
-                    p.work, p.copy) == (path, body, g.elems, 256, g.smem,
-                                        g.tiles, g.work, None)
+                    p.work, p.copy, p.cluster, p.clusters) == (
+                path, body, g.elems, 256, g.smem, g.tiles, g.work, None,
+                g.cluster, g.clusters)
             assert g.path == path and g.elems == 1
             if body == "gmem":
                 assert g.tiles == min(f.nelem, fa.GMEM_BLOCKS_PER_SM * sms)
             else:
                 assert g.work == 0 and g.smem <= fa.H100_SMEM_PER_BLOCK
+                assert g.clusters == f.nelem and g.cluster >= 1
         fa.COUNTS.reset()
         ve, st = fa.residual(u.to(dtype), conn, q, b, PHYS, pw)
         jv = fa.jacobian(v.to(dtype), conn, q, st_in, b, PHYS, pw)
@@ -386,6 +395,101 @@ def test_gmem_matches_plain_above_a_block(cuda):
                 assert bool((err <= 2e-5 * ref.abs() + 1e-6 * mx).all())
     Config(problem="hyperFS", degree=11, device=cuda, dtype=torch.float64)
     Config(problem="hyperFS", degree=14, device=cuda)
+
+
+# the cluster body at sizes the plan chooses (0) and given ones: (physics,
+# box faces, degree, Q, dtype, cluster sizes, streams one word off 16
+# bytes). Phase 19's shapes, (15, 15) float32 on 5^3 (125 elements) and
+# (12, 12) float64 on 6^3 (216), and their (9, 9) levels, at every size
+# their plans choose and at 1 (where one CTA holds an element), 2, 4 and
+# 8; linElas (no stash); the pressure term's (21, 2), whose k = 8 leaves
+# the last CTA no slab; a ragged (11, 10), where most sizes divide
+# neither P nor Q^2; 343 elements at (12, 12), more clusters than the card
+# runs at once
+CLUSTER_CASES = (
+    ("hyperFS", (5, 5, 5), 14, 15, torch.float32, (0, 2, 4, 8), False),
+    ("hyperFS", (6, 6, 6), 11, 12, torch.float64, (0, 2, 4, 8), False),
+    ("hyperFS", (5, 5, 5), 8, 9, torch.float32, (0, 1, 2, 4, 8), False),
+    ("hyperFS", (6, 6, 6), 8, 9, torch.float64, (0, 1, 2, 4, 8), False),
+    ("linElas", (1, 1, 1), 11, 12, torch.float64, (2, 8), False),
+    ("hyperFSIncomp-pressure", (1, 1, 1), 20, 2, torch.float64, (2, 8),
+     False),
+    ("hyperSS", (2, 1, 1), 10, 10, torch.float64, (1, 3, 6, 7), False),
+    ("hyperFS", (2, 1, 1), 11, 12, torch.float64, (2, 8), True),
+    ("hyperFS", (2, 1, 1), 14, 15, torch.float32, (0, 4), True),
+    ("hyperFS", (7, 7, 7), 11, 12, torch.float64, (0, 8), False))
+
+
+@pytest.mark.parametrize("physics,faces,degree,Q,dtype,ks,shift",
+                         CLUSTER_CASES)
+def test_cluster_matches_plain(cuda, physics, faces, degree, Q, dtype, ks,
+                               shift):
+    """The cluster body (one element a thread-block cluster of k CTAs)
+    against the plain float64 version, residual (with the stash) and J.v,
+    at the tolerances and input scaling of
+    test_gmem_matches_plain_above_a_block, at each cluster size of `ks`
+    (0: the plan's; else fused_apply's override); its plan is
+    generic_plan's, and the launches count under "generic_cluster". A size
+    other than 1..8, or a size on a shape of another body, is refused."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    f = OperatorFactory(build_fespace(box_mesh(faces), degree),
+                        dtype=torch.float64, device=cuda, q1d=Q)
+    P = f.basis.P
+    rng = np.random.default_rng(degree)
+    amp = 3e-3 / faces[0] * (5 / P) ** 2
+    u, v = (torch.as_tensor(rng.standard_normal((3, f.space.num_nodes))
+                            * amp, device=cuda) for _ in range(2))
+    q64 = f.compute_qdata()
+    pw = fa.pointwise(physics)
+    conn = f.restr.conn
+    ve0, st0 = fa.residual_plain(u, conn, q64, f.basis, PHYS, pw)
+    jv0 = fa.jacobian_plain(v, conn, q64, st0, f.basis, PHYS, pw)
+    b = Basis3D.create(P, Q, "gauss", dtype, device=cuda)
+
+    def moved(t):
+        if not shift or t is None:
+            return t
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    q = moved(q64.to(dtype))
+    st_in = None if st0 is None else moved(st0.to(dtype))
+    for jac in (False, True):
+        p = fa.plan(jac, q, b, st_in if jac else None, pw)
+        g = fa.generic_plan(P, Q, dtype, f.nelem, sms,
+                            19 if jac and pw.stash else 10)
+        assert (p.path, p.body, p.smem, p.tiles, p.cluster, p.clusters) == (
+            "generic_cluster", "cluster", g.smem, g.tiles, g.cluster,
+            g.clusters)
+        assert p.clusters == f.nelem and p.tiles == f.nelem * p.cluster
+    for k in ks:
+        fa.COUNTS.reset()
+        ve, st = fa.residual(u.to(dtype), conn, q, b, PHYS, pw, cluster=k)
+        jv = fa.jacobian(v.to(dtype), conn, q, st_in, b, PHYS, pw,
+                         cluster=k)
+        torch.cuda.synchronize()
+        assert fa.COUNTS.by_path == {("residual", "generic_cluster"): 1,
+                                     ("jacobian", "generic_cluster"): 1}
+        pairs = [(ve, ve0), (jv, jv0)] + ([(st, st0)] if pw.stash else [])
+        for got, ref in pairs:
+            err = (got.double() - ref).abs()
+            mx = ref.abs().max()
+            if dtype == torch.float64:
+                assert float(err.max() / mx) <= 1e-12, (k, float(err.max()))
+            else:
+                assert bool((err <= 2e-5 * ref.abs() + 1e-6 * mx).all()), k
+    for bad in (9, -1):
+        with pytest.raises(RuntimeError, match="cluster size"):
+            fa.jacobian(v.to(dtype), conn, q, st_in, b, PHYS, pw,
+                        cluster=bad)
+    f5 = OperatorFactory(build_fespace(box_mesh((1, 1, 1)), 6),
+                         dtype=dtype, device=cuda)
+    with pytest.raises(RuntimeError, match="cluster size"):
+        fa.residual(torch.zeros((3, f5.space.num_nodes), dtype=dtype,
+                                device=cuda), f5.restr.conn,
+                    f5.compute_qdata(), f5.basis, PHYS, cluster=2)
 
 
 def test_solve_on_gpu_matches_cpu(cuda):
@@ -674,8 +778,8 @@ def test_resume_on_gpu_matches_unbroken(cuda):
 # -- the distributed driver (parallel/) on the card --------------------------
 DIST = dict(problem="hyperFS", degree=2, nu=0.3, E=1.0, test_mode=True,
             box_faces=(3, 3, 3), multigrid="logarithmic", num_increments=2)
-KERNEL_PATHS = {"bulk", "async", "generic", "generic_smem",
-                "generic_gmem"}
+KERNEL_PATHS = {"bulk", "async", "generic", "generic_gmem",
+                "generic_cluster"}
 
 
 def test_dist_nccl_world1_residual_matches_serial_kernel(cuda, tmp_path):

@@ -1,6 +1,8 @@
 """The high degrees: every (P, Q) whose one-element generic tile exceeds the
 shared memory of an H100 block, which the CUDA fused apply runs on the
-generic tile's global-memory body ("gmem").
+generic tile's cluster body ("cluster": an element in the shared memory of
+a thread-block cluster) and, where no cluster of 8 CTAs holds one, on its
+global-memory body ("gmem").
 
 CPU, against the JAX package:
   * the port's plain residual (with its stash) and J.v against the JAX XLA
@@ -15,10 +17,11 @@ CPU, against the JAX package:
     (5,184 DoF), the port's p-MG + AMG ElasticityProblem.solve against the
     JAX package's serial Jacobi-CG solve of the same problem (u to 1e-10
     relative, strain energy to 1e-10). Its p = 1 level has no free DOF.
-Pure Python: the plan picks the gmem body exactly where the smem body's
-one-element tile exceeds 232,448 bytes; the four constructors take no
-default device; the eigenvalue estimate of a level without free DOFs gives
-JAX's NaN bounds.
+Pure Python: above P, Q = 8 the plan picks the cluster body, at two or
+more CTAs exactly where one element's buffers exceed 232,448 bytes, and
+the gmem body only where no cluster of 8 CTAs holds one; the four
+constructors and the interop converters take no default device; the
+eigenvalue estimate of a level without free DOFs gives JAX's NaN bounds.
 """
 
 import jax.numpy as jnp
@@ -62,7 +65,7 @@ def test_plain_matches_jax_at_gmem_shapes(physics, degree, q1d):
     tf = TFactory(tbuild(tm, degree), dtype=torch.float64, device="cpu",
                   q1d=q1d)
     P, Q = tf.basis.P, tf.basis.Q
-    assert fused_apply.generic_plan(P, Q, torch.float64, 1).body == "gmem"
+    assert fused_apply.generic_plan(P, Q, torch.float64, 1).body == "cluster"
     pw = fused_apply.pointwise(physics)
     jmod = jget_model(physics.removesuffix("-pressure"))
     pre = "pressure_" if physics.endswith("-pressure") else ""
@@ -77,9 +80,9 @@ def test_plain_matches_jax_at_gmem_shapes(physics, degree, q1d):
     jjv = jf.make_jacobian_structured(
         getattr(jmod, pre + "jacobian_planes"), JPHYS)(
         jnp.asarray(v), jq, jst, jf.fine.srestr, jf.fine.sgrad)
-    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3)
-    st_in = interop.stash_from_jax(jst, tf.nelem, tf.Q3)
-    tu, tv = interop.u_from_jax(u), interop.u_from_jax(v)
+    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3, device="cpu")
+    st_in = interop.stash_from_jax(jst, tf.nelem, tf.Q3, device="cpu")
+    tu, tv = (interop.u_from_jax(x, device="cpu") for x in (u, v))
     conn = tf.restr.conn
     ve, st = fused_apply.residual(tu, conn, tq, tf.basis, TPHYS, pw)
     jv = fused_apply.jacobian(tv, conn, tq, st_in, tf.basis, TPHYS, pw)
@@ -131,37 +134,53 @@ def test_degree11_solve_matches_jax_serial():
     (12, 12, torch.float64, 31_104),    # 9 P Q^2 + 9 Q^3
     (15, 15, torch.float32, 60_750),
     (21, 2, torch.float64, 33_075),     # 3 P^3 + 6 P^2 Q
-    (11, 11, torch.float64, 0),         # the smem body: 193,600 bytes
+    (11, 11, torch.float64, 0),         # one block's: 193,600 bytes
     (14, 14, torch.float32, 0),         # 199,136 bytes
     (12, 12, torch.float32, 0),
 ])
 def test_plan_takes_gmem_exactly_above_a_block(P, Q, dtype, words):
-    """generic_plan picks the gmem body exactly where the smem body's
-    one-element tile (2 Q P + max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3)
-    words) exceeds 232,448 bytes, over P, Q = 2..24, 1..24 in both dtypes;
-    its workspace is `words` words (buffers A and B of one element) a
-    block, on min(nelem, 2 x SMs) blocks: at phase 19's meshes one block
-    an element, 125 at (15, 15) f32 on 5^3 and 216 at (12, 12) f64 on 6^3,
-    and 264 on a larger mesh."""
+    """Above P, Q = 8 generic_plan picks the gmem body exactly where no
+    cluster of 8 CTAs holds an element (each CTA's share: B, D, B^T, D^T
+    and its regions A and B, fused_apply.cluster_plan, within 232,448
+    bytes), over P, Q = 2..24, 1..24 in both dtypes, and the cluster body
+    elsewhere. `words`: one element's buffers A and B as one block would
+    hold them (max(3 P^3, 9 P Q^2) + max(6 P^2 Q, 9 Q^3)) where they
+    exceed a block (PR 11's gmem shapes, the cluster body's at two CTAs or
+    more), 0 where one CTA holds the element: at phase 19's meshes, 125
+    elements at (15, 15) f32 on 5^3 and 216 at (12, 12) f64 on 6^3, and
+    one element and 343, the plan takes one cluster an element, of the
+    fewest CTAs that fit, doubled while a CTA takes more than 115,712
+    bytes (two would not share an SM) or the grid has fewer CTAs than the
+    card's 132 SMs, and no workspace."""
     for p in range(2, 25):
         for q in range(1, 25):
             for dt in (torch.float32, torch.float64):
                 w = dt.itemsize
-                one = w * (2 * q * p + max(3 * p ** 3, 9 * p * q * q)
-                           + max(6 * p * p * q, 9 * q ** 3))
-                gmem = max(p, q) > 8 and one > 232_448
+                fits = fused_apply.cluster_fewest(p, q, w) > 0
+                gmem = max(p, q) > 8 and not fits
                 plan = fused_apply.generic_plan(p, q, dt, 216)
                 assert (plan.body == "gmem") == gmem, (p, q, dt)
                 assert (plan.path == "generic_gmem") == gmem
+                assert (plan.body == "cluster") == (max(p, q) > 8 and fits)
+                if gmem:
+                    assert fused_apply.cluster_plan(
+                        p, q, w, 8).smem > 232_448
     w = dtype.itemsize
-    for nelem, blocks in ((1, 1), (125, 125), (216, 216), (343, 264)):
+    one = max(3 * P ** 3, 9 * P * Q * Q) + max(6 * P * P * Q, 9 * Q ** 3)
+    assert (w * one > 232_448) == (words > 0)
+    fewest = fused_apply.cluster_fewest(P, Q, w)
+    assert (fewest >= 2) == (words > 0) and words in (0, one)
+    for nelem in (1, 125, 216, 343):
         g = fused_apply.generic_plan(P, Q, dtype, nelem)
-        if words == 0:
-            assert g.body == "smem" and g.work == 0
-            continue
-        assert (g.body, g.elems, g.threads, g.smem, g.tiles) == (
-            "gmem", 1, 256, w * 2 * Q * P, blocks)
-        assert g.work == w * words * blocks
+        k = fewest
+        while 2 * k <= 8 and (
+                fused_apply.cluster_plan(P, Q, w, k).smem > 115_712
+                or nelem * k < 132):
+            k *= 2
+        assert (g.body, g.elems, g.threads, g.tiles, g.work, g.cluster,
+                g.clusters) == ("cluster", 1, 256, nelem * k, 0, k, nelem)
+        assert g.smem == fused_apply.cluster_plan(P, Q, w, k).smem <= \
+            232_448
     fused_apply.require_fits("hyperFS", P, Q)
 
 
@@ -182,6 +201,30 @@ def test_constructors_take_no_default_device():
     Basis3D.create(2, 2, "gauss", torch.float64, device="cpu")
     Restriction(conn, 8, device="cpu")
     CSRAssembler(conn, 8, np.zeros(24, bool), device="cpu")
+
+
+def test_interop_converters_take_no_default_device():
+    """The JAX-to-port state converters have no default device: without
+    one they raise TypeError, as the constructors above do."""
+    a3 = np.zeros((3, 8))
+    q = np.zeros((10, 1, 8))
+    st = np.zeros((9, 1, 8))
+    calls = (
+        (interop.qdata_from_jax, (q, 1, 8)),
+        (interop.stash_from_jax, (st, 1, 8)),
+        (interop.u_from_jax, (a3,)),
+        (interop.pc_from_jax, ([a3], [(0.1, 1.0)])),
+        (interop.mask_from_jax, (np.zeros((3, 8), bool),)),
+        (interop.stash_pair_from_jax, (st, np.zeros((9, 1, 1)), 1, 8)),
+        (interop.owned_from_jax, (np.zeros((2, 3, 4)), 1)),
+    )
+    for fn, args in calls:
+        with pytest.raises(TypeError):
+            fn(*args)
+        out = fn(*args, device="cpu")
+        for t in out[0] if fn is interop.pc_from_jax else (
+                out if isinstance(out, tuple) else (out,)):
+            assert t.device.type == "cpu"
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -52,7 +52,7 @@ def test_composite_operator_matches_jax(pair):
                                                          1)
     ref = interop.stash_pair_from_jax(
         jp.factory.stash_view(st_j[0]), jp.pfactory.stash_view(st_j[1]),
-        tp.factory.nelem, tp.factory.Q3)
+        tp.factory.nelem, tp.factory.Q3, device="cpu")
     for got, r in zip(st_t, ref):
         assert _rel(got.numpy(), r.numpy()) <= 1e-12
     v = np.random.default_rng(6).standard_normal(u.shape)
@@ -71,7 +71,7 @@ def test_composite_preconditioner_matches_jax(pair, monkeypatch):
     _, st_j = jp._nonlinear_residual(jnp.asarray(u), jp.bc_values(1.0), jp.F)
     st = interop.stash_pair_from_jax(
         jp.factory.stash_view(st_j[0]), jp.pfactory.stash_view(st_j[1]),
-        tp.factory.nelem, tp.factory.Q3)
+        tp.factory.nelem, tp.factory.Q3, device="cpu")
     dinv_j, bounds_j = jp._pc_setup_j(st_j, jp._big)
     levels, stash_nats = tp.build_mg_levels(st)
     dinv_t, bounds_t = tp.mg_setup(st, levels, stash_nats)

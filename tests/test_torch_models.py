@@ -78,7 +78,7 @@ def test_hyperfs_pointwise_physics():
         te = thfs.energy_qf(torch.as_tensor(d), torch.as_tensor(qd), TPHYS)
         close(te.numpy(), je)
     # Mat3 planes interop: JAX stash -> port stash tensor
-    st = interop.stash_from_jax(JMat3(jg.m), *shape)
+    st = interop.stash_from_jax(JMat3(jg.m), *shape, device="cpu")
     np.testing.assert_array_equal(st.numpy(), np.stack(tg.m))
     assert isinstance(TMat3(st.unbind(0)), TMat3)
 
@@ -94,8 +94,9 @@ def test_jacobi_diagonal(kind, n, degree):
     _, jstash = jres(jnp.asarray(u), jq, jf.fine.srestr, jf.fine.sgrad)
     jdiag = jf.make_diagonal(jhfs.jacobian_qf, JPHYS)(
         jq, jf.stash_view(jstash), jf.fine.restr)
-    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3)
-    tstash = interop.stash_from_jax(jstash, tf.nelem, tf.Q3)
+    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3, device="cpu")
+    tstash = interop.stash_from_jax(jstash, tf.nelem, tf.Q3,
+                                    device="cpu")
     tdiag = tf.make_diagonal(thfs.jacobian_qf, TPHYS)(tq, tstash)
     close(tdiag.numpy(), jdiag)
 

@@ -162,8 +162,8 @@ def test_level_operators_match_jax(kind, level):
     jq = jf.compute_qdata()
     _, jst = jf.make_residual_structured(jhfs.residual_planes, JPHYS)(
         jnp.asarray(u), jq, jf.fine.srestr, jf.fine.sgrad)
-    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3)
-    tst = interop.stash_from_jax(jst, tf.nelem, tf.Q3)
+    tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3, device="cpu")
+    tst = interop.stash_from_jax(jst, tf.nelem, tf.Q3, device="cpu")
     jl = jf.levels[level]
 
     # native quadrature
@@ -173,7 +173,8 @@ def test_level_operators_match_jax(kind, level):
     tstn = tf.stash_to_native(tst, level)
     Q3n = tf.levels[level].nat_basis.Q3
     assert _rel(tqn.numpy(), jqn) <= 1e-11
-    assert _rel(tstn.numpy(), interop.stash_from_jax(jstn, tf.nelem, Q3n)
+    assert _rel(tstn.numpy(), interop.stash_from_jax(jstn, tf.nelem, Q3n,
+                                                         device="cpu")
                 ) <= 1e-11
     jjv = jf.make_jacobian_native(jhfs.jacobian_planes, JPHYS, level)(
         jnp.asarray(v), jqn, jstn, jl.srestr, jl.nat_sgrad)
@@ -248,7 +249,7 @@ def vcycle_case(request):
     jx = jmake_vcycle(jlevels, smooth_its=3, coarse_cheb_its=30)(
         jnp.asarray(b), jst, list(diag_invs), list(bounds))
     tst = interop.stash_from_jax(jp.factory.stash_view(jst), tp.factory.nelem,
-                                 tp.factory.Q3)
+                                 tp.factory.Q3, device="cpu")
     return dict(jp=jp, tp=tp, b=b, tst=tst, pc=(diag_invs, bounds),
                 jx=np.asarray(jx))
 
@@ -259,8 +260,8 @@ def test_vcycle_matches_jax(vcycle_case):
     c = vcycle_case
     tp = c["tp"]
     for jm, tl in zip(c["jp"]._big["level_masks"], tp._level_masks):
-        assert torch.equal(interop.mask_from_jax(jm), tl)
-    pc = interop.pc_from_jax(*c["pc"])
+        assert torch.equal(interop.mask_from_jax(jm, device="cpu"), tl)
+    pc = interop.pc_from_jax(*c["pc"], device="cpu")
     levels, _ = tp.build_mg_levels(c["tst"])
     tx = tmake_vcycle(levels, smooth_its=3, coarse_cheb_its=30)(
         torch.as_tensor(c["b"]), c["tst"], *pc)

@@ -95,7 +95,7 @@ def test_diagnostics_match_jax(kind, problem):
     rng = np.random.default_rng(5)
     u_j = jnp.asarray(rng.normal(size=(3, tp.fine_space.num_nodes)) * 1e-2)
     ref = np.asarray(jp.diagnostics(u_j))
-    u = interop.u_from_jax(u_j)
+    u = interop.u_from_jax(u_j, device="cpu")
     got = tp.diagnostics(u)
     assert got.shape == (tp.fine_space.num_nodes, 8)
     assert got.dtype == torch.float64 and got.device.type == "cpu"

@@ -138,7 +138,7 @@ def test_resume_from_jax_checkpoint(clamp):
     ji, _, _ = _solve(jp)
     with knobs([jp], stop_at_load=0.5):
         si, _, ck = _solve(jp)
-    ri, _, _ = _solve(tp, u0=interop.u_from_jax(ck["u"]),
+    ri, _, _ = _solve(tp, u0=interop.u_from_jax(ck["u"], device="cpu"),
                       start_load=ck["load"], floor_atol0=ck["floor"])
     assert ri.converged and ji.converged
     assert si.snes_iters + ri.snes_iters == ji.snes_iters
