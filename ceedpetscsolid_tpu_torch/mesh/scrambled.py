@@ -7,6 +7,8 @@ with edge/face orientation resolution (mesh/fespace.py), and with enough
 elements every edge and face orientation occurs. It stands in for the
 unstructured Exodus-II meshes, which are not part of the repository.
 Face sets are dropped: MMS boundary conditions use the whole boundary.
+`write_exodus_hex27` writes such a mesh as an Exodus-II file, with the face
+sets a caller names (`faces_on`), for the paths that read a file.
 """
 
 from __future__ import annotations
@@ -16,7 +18,12 @@ import itertools
 import numpy as np
 
 from .box import box_mesh
-from .core import HexMesh
+from .core import (
+    EXODUS_HEX8_TO_TENSOR,
+    EXODUS_SIDE_TO_FACE,
+    FACE_VERTICES,
+    HexMesh,
+)
 
 
 def cube_rotations() -> list[np.ndarray]:
@@ -56,3 +63,58 @@ def scrambled_box_mesh(faces=(4, 4, 4), seed: int = 0) -> HexMesh:
     rot = _rotation_vertex_perms()[rng.integers(0, 24, size=ne)]
     conn = np.take_along_axis(conn, rot, axis=1)
     return HexMesh(vertices=vertices, connectivity=conn)
+
+
+def write_exodus_hex27(path, mesh, side_sets):
+    """A netCDF-3 classic Exodus-II file of `mesh`, one HEX27 block (the 19
+    higher-order nodes of each element at its lattice midpoints, numbered
+    after the corners; the reader keeps the corners only) and `side_sets`
+    {id: (element, local face) pairs}."""
+    from scipy.io import netcdf_file
+
+    side = {f: s for s, f in EXODUS_SIDE_TO_FACE.items()}
+    nv, ne = mesh.num_vertices, mesh.num_elements
+    xe = mesh.vertices[mesh.connectivity]                    # (e, 8, 3)
+    mids = []
+    for k, j, i in np.ndindex(3, 3, 3):
+        if 1 not in (i, j, k):
+            continue
+        w = np.array([(i / 2 if a else 1 - i / 2) * (j / 2 if b else 1 - j / 2)
+                      * (k / 2 if c else 1 - k / 2)
+                      for c in (0, 1) for b in (0, 1) for a in (0, 1)])
+        mids.append(np.einsum("v,evd->ed", w, xe))
+    coords = np.concatenate([mesh.vertices,
+                             np.stack(mids, axis=1).reshape(-1, 3)])
+    nodes = np.concatenate([mesh.connectivity[:, EXODUS_HEX8_TO_TENSOR],
+                            np.arange(nv, nv + 19 * ne).reshape(ne, 19)], 1)
+    nc = netcdf_file(str(path), "w")
+    try:
+        for name, n in (("num_dim", 3), ("num_nodes", coords.shape[0]),
+                        ("num_elem", ne), ("num_el_blk", 1),
+                        ("num_el_in_blk1", ne), ("num_nod_per_el1", 27),
+                        ("num_side_sets", len(side_sets))):
+            nc.createDimension(name, n)
+        for d, name in enumerate(("coordx", "coordy", "coordz")):
+            nc.createVariable(name, "d", ("num_nodes",))[:] = coords[:, d]
+        blk = nc.createVariable("connect1", "i",
+                                ("num_el_in_blk1", "num_nod_per_el1"))
+        blk[:] = (nodes + 1).astype(np.int32)
+        blk.elem_type = "HEX27"
+        nc.createVariable("ss_prop1", "i", ("num_side_sets",))[:] = \
+            np.array(sorted(side_sets), dtype=np.int32)
+        for i, sid in enumerate(sorted(side_sets), start=1):
+            fs = side_sets[sid]
+            nc.createDimension(f"num_side_ss{i}", fs.shape[0])
+            nc.createVariable(f"elem_ss{i}", "i", (f"num_side_ss{i}",))[:] = \
+                (fs[:, 0] + 1).astype(np.int32)
+            nc.createVariable(f"side_ss{i}", "i", (f"num_side_ss{i}",))[:] = \
+                np.array([side[int(f)] for f in fs[:, 1]], dtype=np.int32)
+    finally:
+        nc.close()
+
+
+def faces_on(mesh, axis, value):
+    """(element, local face) pairs of `mesh` on the plane x_axis = value."""
+    on = np.isclose(mesh.vertices[:, axis], value, atol=1e-12)
+    e, f = np.nonzero(on[mesh.connectivity[:, FACE_VERTICES]].all(axis=2))
+    return np.stack([e, f], axis=1).astype(np.int64)

@@ -20,7 +20,9 @@ Preconditioner data (level diagonals, Chebyshev bounds) is built once per
 Jacobian refresh (`pc_setup`, the KSPChebyshevEstEig cadence) and the AMG
 coarse hierarchy by `refresh_amg`, whose p = 1 element matrices every rank
 computes on its device and all ranks gather, so each assembles the same
-matrix and runs the same native setup.
+matrix and runs the same native setup. Both record their stages in the
+problem's StageLog (`log`): they run outside a Newton step, so the
+synchronisation each stage ends with times nothing of the step.
 
 The JAX package's slab spectral path on boxes (parallel/slab.py,
 `SpectralLattice`) is a TPU layout and is not ported: `use_slab=True`
@@ -43,6 +45,8 @@ from ..ops.operator import element_diagonal
 from ..solve.amg import AMGPreconditioner
 from ..solve.cg import pcg
 from ..solve.newton import NewtonOptions, NewtonPolicy
+from ..utils.profile_solve import AMG_SCOPE
+from ..utils.timing import StageLog
 from . import mg as dmg
 from .dist import Comm, ddot, dnorm
 from .partition import gather_owned_to_global, partition_space
@@ -100,6 +104,12 @@ class DistributedProblem:
         self.use_slab, self.slab = use_slab, None
         self.device, self.dtype = prob.device, prob.dtype
         self.comm = Comm(group, prob.device)
+        # refresh_amg's and pc_setup's stages: each phase's wall under its
+        # name, its parts under "<phase>: <part>"
+        self.log = StageLog(self.device)
+        # the exit reason of the last newton_step's CG ("converged",
+        # "max_it", "indefinite", "stalled", ...)
+        self.cg_reason = None
         self.ndev, self.rank = self.comm.world, self.comm.rank
         nlev = len(prob.spaces)
         if use_mg is None:
@@ -317,51 +327,84 @@ class DistributedProblem:
         refresh_amg does; the float64 values come to the host, where every
         rank runs the same native setup, so the coarse hierarchy is
         replicated as in the JAX package. A NaN stash raises
-        FloatingPointError (the AMG's coarse matrix)."""
-        prob = self.problem
-        _, stash, _ = self._entry_residual(u_owned, load)
-        em = self._em_mu(self.qdata, stash.mu)
-        if self.composite:
-            em = em + self._em_p(self.qdata_p, stash.p)
-        nd = em.shape[-1]
-        pad = em.new_zeros((self.part.nelem_max, nd, nd))
-        pad[: em.shape[0]] = em
-        allm = self.comm.all_gather(pad).reshape(-1, nd, nd)
+        FloatingPointError (the AMG's coarse matrix). Its stages go to
+        `log`: the residual and stash, element matrices, all_gather, CSR
+        pattern (the first call only), CSR reduce, d2h, native setup,
+        extract and upload."""
+        with self.log.stage("refresh_amg"):
+            return self._refresh_amg(u_owned, load)
+
+    def _refresh_amg(self, u_owned, load: float):
+        prob, stage = self.problem, self.log.stage
+        with stage("refresh_amg: residual and stash"):
+            _, stash, _ = self._entry_residual(u_owned, load)
+        with stage("refresh_amg: element matrices"):
+            em = self._em_mu(self.qdata, stash.mu)
+            if self.composite:
+                em = em + self._em_p(self.qdata_p, stash.p)
+            nd = em.shape[-1]
+            pad = em.new_zeros((self.part.nelem_max, nd, nd))
+            pad[: em.shape[0]] = em
+        with stage("refresh_amg: all_gather"):
+            allm = self.comm.all_gather(pad).reshape(-1, nd, nd)
         if self._amg is None:
-            # position of each global element among the gathered blocks
-            gids = self.part.elem_gid.reshape(-1)
-            pos = np.nonzero(gids >= 0)[0]
-            self._elem_order = torch.as_tensor(pos[np.argsort(gids[pos])],
-                                               device=self.device)
-            # the serial problem's assembler when it has one: the same
-            # p = 1 pattern and BC masks
-            self._assembler0 = getattr(prob, "_assembler0", None)
-            if self._assembler0 is None:
-                space0 = prob.spaces[0]
-                self._assembler0 = CSRAssembler(
-                    space0.conn, space0.num_nodes,
-                    prob._level_mask(space0).cpu().numpy(),
-                    device=self.device)
-            self._amg = AMGPreconditioner(self.dtype, self.device)
-        vals = self._assembler0.assemble_values(allm[self._elem_order])
-        self._amg.setup(self._assembler0.from_values(
-            vals.to(torch.float64).cpu().numpy()))
+            with stage("refresh_amg: CSR pattern"):
+                # position of each global element among the gathered
+                # blocks
+                gids = self.part.elem_gid.reshape(-1)
+                pos = np.nonzero(gids >= 0)[0]
+                self._elem_order = torch.as_tensor(
+                    pos[np.argsort(gids[pos])], device=self.device)
+                # the serial problem's assembler when it has one: the
+                # same p = 1 pattern and BC masks
+                self._assembler0 = getattr(prob, "_assembler0", None)
+                if self._assembler0 is None:
+                    space0 = prob.spaces[0]
+                    self._assembler0 = CSRAssembler(
+                        space0.conn, space0.num_nodes,
+                        prob._level_mask(space0).cpu().numpy(),
+                        device=self.device)
+                self._amg = AMGPreconditioner(self.dtype, self.device)
+        with stage("refresh_amg: CSR reduce"):
+            vals = self._assembler0.assemble_values(allm[self._elem_order])
+        with stage("refresh_amg: d2h"):
+            vals = vals.to(torch.float64).cpu().numpy()
+        t0 = time.perf_counter()
+        self._amg.setup(self._assembler0.from_values(vals))
+        # AMGPreconditioner.setup times its native call and its extraction
+        # and upload (synchronised); the host CSR it is given counts with
+        # the native setup
+        upload = self._amg.last_times["upload"]
+        self.log.add("refresh_amg: native setup",
+                     time.perf_counter() - t0 - upload)
+        self.log.add("refresh_amg: extract and upload", upload)
         return self._amg.data
 
     def pc_setup(self, u_owned, load_increment: float):
         """Preconditioner refresh (level inverse diagonals and, for p-MG,
         Chebyshev bounds), run once per Jacobian like the serial
-        _pc_setup. Jacobi: (1 / diag,); p-MG: (dinvs, bounds)."""
-        _, stash, _ = self._entry_residual(u_owned, load_increment)
+        _pc_setup. Jacobi: (1 / diag,); p-MG: (dinvs, bounds). Its stages
+        go to `log`: the residual and stash, level diagonals, and
+        "eigenvalue estimate p<degree>" a level."""
+        with self.log.stage("pc_setup"):
+            return self._pc_setup(u_owned, load_increment)
+
+    def _pc_setup(self, u_owned, load_increment: float):
+        stage = self.log.stage
+        with stage("pc_setup: residual and stash"):
+            _, stash, _ = self._entry_residual(u_owned, load_increment)
+        with stage("pc_setup: level diagonals"):
+            dinvs = [1.0 / self._level_diag(l, stash)
+                     for l in range(len(self.levels) if self.use_mg else 1)]
         if not self.use_mg:
-            return (1.0 / self._level_diag(0, stash),)
-        dinvs, bounds = [], []
+            return tuple(dinvs)
+        bounds = []
         for l, lv in enumerate(self.levels):
-            dinv = 1.0 / self._level_diag(l, stash)
-            dinvs.append(dinv)
             valid = ~lv.mask & lv.ra.owned_valid
-            bounds.append(dmg.estimate_eigs_dist(
-                self._level_apply(l, stash), dinv, valid, self.comm))
+            deg = self.problem.level_degrees[l]
+            with stage(f"pc_setup: eigenvalue estimate p{deg}"):
+                bounds.append(dmg.estimate_eigs_dist(
+                    self._level_apply(l, stash), dinvs[l], valid, self.comm))
         return tuple(dinvs), tuple(bounds)
 
     def _vcycle(self, stash: _Stash, pc, amg_data):
@@ -374,10 +417,13 @@ class DistributedProblem:
         def coarse_solve(b0):
             if amg_data is None:
                 return dmg.chebyshev_dist(A[0], b0, dinvs[0], *bounds[0], 30)
-            g = dmg.owned_to_replicated_global(b0, lv[0], self.comm)
-            xf = self._amg.apply(g.T.reshape(-1), amg_data)
-            out = dmg.replicated_global_to_owned(xf.reshape(-1, 3).T, lv[0])
-            return torch.where(lv[0].mask, 0.0, out)
+            # a profiler label (utils/profile_solve.step_split): no sync
+            with torch.profiler.record_function(AMG_SCOPE):
+                g = dmg.owned_to_replicated_global(b0, lv[0], self.comm)
+                xf = self._amg.apply(g.T.reshape(-1), amg_data)
+                out = dmg.replicated_global_to_owned(xf.reshape(-1, 3).T,
+                                                     lv[0])
+                return torch.where(lv[0].mask, 0.0, out)
 
         def vcycle(bf):
             bs, xs = [None] * nlev, [None] * nlev
@@ -431,6 +477,7 @@ class DistributedProblem:
                   maxiter=min(cfg.ksp_max_it, 10_000), stall_its=60,
                   dot=lambda a, b: ddot(a, b, comm))
         d = res.x
+        self.cg_reason = res.reason
 
         # critical-point line search: one secant step
         G1, _ = residual(u_owned + d)
@@ -459,7 +506,8 @@ class DistributedProblem:
         ("step_seconds"), the part of each spent in the AMG refresh and
         pc_setup ("pc_seconds"), both synchronised, and the seconds in
         the exchanges ("exchange_seconds", per kind: Comm.seconds, the
-        host's under gloo, the device's under NCCL)."""
+        host's under gloo, the device's under NCCL) and in the stages of
+        refresh_amg and pc_setup ("stage_seconds": the `log`'s)."""
         cfg = self.problem.config
         n_inc = num_increments or cfg.num_increments
         u = self.to_owned(np.zeros((3, self.problem.fine_space.num_nodes)))
@@ -471,6 +519,7 @@ class DistributedProblem:
         opts = NewtonOptions(rtol=rtol, max_it=max_newton)
         step_s, pc_s = [], []
         ex0 = self.comm.seconds()
+        st0 = self.log.seconds()
         for inc in range(1, n_inc + 1):
             load = inc / n_inc
             policy = None
@@ -527,4 +576,6 @@ class DistributedProblem:
             "pc_seconds": pc_s,
             "exchange_seconds": {k: v - ex0[k]
                                  for k, v in self.comm.seconds().items()},
+            "stage_seconds": {k: v - st0.get(k, 0.0)
+                              for k, v in self.log.seconds().items()},
         }

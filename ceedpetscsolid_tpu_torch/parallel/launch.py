@@ -9,9 +9,13 @@ among them), joins a process group through a `FileStore` in `store_dir`
 calls `fn(rank, world, device, *args)`, where `device` is the rank's own:
 the given one, except that NCCL puts rank r on cuda:r. The backend, the
 device and the store's directory have no defaults: a caller that forgets
-the device does not land on the CPU. A CUDA rank's torch takes its share
-of the host's cores for its CPU work, a CPU rank one thread (the tests run
-several files side by side). `fn` must be a module-level function (spawn
+the device does not land on the CPU. A CUDA rank takes its share of the
+host's cores for its CPU work, a CPU rank one thread (the tests run
+several files side by side): torch's threads, and the BLAS and OpenMP
+pools that numpy and the native AMG start at import (`THREAD_ENV`, set for
+the ranks as they start), which otherwise take every core in every rank
+and, spinning against each other, made the AMG refresh's host part of
+four ranks 200x slower. `fn` must be a module-level function (spawn
 pickles it by name) and return something picklable (numpy arrays, not
 CUDA tensors). `run` returns rank 0's result, passed back through a file
 in `store_dir`; a rank that raises makes `run` stop every rank and raise
@@ -39,6 +43,8 @@ from .dist import check_backend
 
 # seconds the ranks of one run may take before they are killed
 TIMEOUT_S = 1800.0
+# the thread-pool sizes a rank's BLAS and OpenMP runtimes read at import
+THREAD_ENV = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
 def rank_device(backend: str, device, rank: int) -> torch.device:
@@ -52,14 +58,19 @@ def rank_device(backend: str, device, rank: int) -> torch.device:
     return dev
 
 
+def rank_threads(dev: torch.device, world: int) -> int:
+    """A rank's CPU threads: the host's cores shared out among CUDA
+    ranks; one for a CPU rank."""
+    if dev.type == "cuda":
+        return max(1, (os.cpu_count() or 1) // world)
+    return 1
+
+
 def _rank_main(rank, fn, world, backend, device, store, result, args):
     dev = rank_device(backend, device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        # the host's cores shared out among the ranks
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    else:
-        torch.set_num_threads(1)
+    torch.set_num_threads(rank_threads(dev, world))
     tdist.init_process_group(backend, store=tdist.FileStore(store, world),
                              rank=rank, world_size=world)
     out = fn(rank, world, dev, *args)
@@ -77,11 +88,22 @@ def run(fn, world: int, backend: str, device, store_dir, args=()):
     tag = uuid.uuid4().hex
     store = os.path.join(store_dir, f"filestore_{tag}")
     result = os.path.join(store_dir, f"result_{tag}.pkl")
+    threads = str(rank_threads(rank_device(backend, device, 0), world))
+    saved = {k: os.environ.get(k) for k in THREAD_ENV}
     try:
-        ranks = mp.start_processes(
-            _rank_main, args=(fn, world, backend, str(device), store, result,
-                              tuple(args)),
-            nprocs=world, join=False, start_method="spawn")
+        # the spawned ranks start with this environment
+        os.environ.update(dict.fromkeys(THREAD_ENV, threads))
+        try:
+            ranks = mp.start_processes(
+                _rank_main, args=(fn, world, backend, str(device), store,
+                                  result, tuple(args)),
+                nprocs=world, join=False, start_method="spawn")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         deadline = time.monotonic() + TIMEOUT_S
         # join returns as each rank ends; it raises (and stops the others)
         # when one fails

@@ -6,9 +6,10 @@ and Python values, gathered on rank 0 (the other ranks return None).
                    space; rank 0 returns every rank's blocks
     problem_task   an ElasticityProblem and its DistributedProblem, then a
                    list of jobs: "residual" (residual_apply), "step" (one
-                   newton_step from given owned blocks), "solve"; each
-                   job's fused-apply launches on every rank, by path and
-                   by (physics, mode, P, Q)
+                   newton_step from given owned blocks), "solve",
+                   "fixed_step" (a timed fixed-work Newton step, the
+                   weak-scaling point); each job's fused-apply launches on
+                   every rank, by path and by (physics, mode, P, Q)
 
 Every rank checks, after its imports and its work, that no JAX module is
 loaded: the port's ranks run without JAX.
@@ -16,12 +17,17 @@ loaded: the port's ranks run without JAX.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 import torch.distributed as tdist
+
+from ..utils.timing import sync
+from .launch import THREAD_ENV
 
 
 def _no_jax():
@@ -93,12 +99,90 @@ def _counts(dp):
             "batch_applies": dict(dp.batch_applies)}
 
 
+def _barrier(dp):
+    """Every rank here, with its device's queued work done."""
+    sync(dp.device)
+    if dp.comm.nccl:
+        tdist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        tdist.barrier()
+    sync(dp.device)
+
+
+def fixed_step(dp, reps: int, profile: bool = False) -> dict:
+    """The weak-scaling point (the JAX package's scripts/weak_scaling.py
+    fixed_step_point): refresh_amg and pc_setup once each at u0 = 0, one
+    warm newton_step, then `reps` timed newton_steps from the same u0 with
+    the same AMG data and preconditioner, each bracketed by a device sync
+    and a barrier; with `profile`, one more step under torch.profiler on
+    rank 0. The problem's ksp_rtol 0 (taken as 1e-10 by newton_step) and
+    ksp_max_it fix the CG work. Returns rank 0's dict (None elsewhere):
+    "step_s" every rep's seconds, the maximum over ranks; "iters" and
+    "cg_reason" of each rep; "exchange_s" the Comm.seconds() deltas over
+    the timed reps per kind, and "clock" which clock they read ("device"
+    under NCCL, "host" under gloo); "setup_s" every rank's refresh_amg and
+    pc_setup stages; the last rep's "u1" (global), "rnorm_in", "rnorm";
+    "elements", "owned" per rank, "dofs"; "profile" (rank 0's step split,
+    utils.profile_solve.step_split) or None."""
+    N = dp.problem.fine_space.num_nodes
+    u0 = dp.to_owned(np.zeros((3, N)))
+    st0 = dp.log.seconds()
+    amg = dp.refresh_amg(u0, 1.0) if dp.use_mg else None
+    pc = dp.pc_setup(u0, 1.0)
+    setup = {k: v - st0.get(k, 0.0) for k, v in dp.log.seconds().items()}
+    dp.newton_step(u0, 1.0, amg_data=amg, pc=pc)
+    ex0 = dp.comm.seconds()
+    times, iters, reasons = [], [], []
+    _barrier(dp)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        u1, rnorm_in, rnorm, its, _, _ = dp.newton_step(u0, 1.0,
+                                                        amg_data=amg, pc=pc)
+        sync(dp.device)
+        times.append(time.perf_counter() - t0)
+        iters.append(int(its))
+        reasons.append(dp.cg_reason)
+        _barrier(dp)
+    ex = {k: v - ex0[k] for k, v in dp.comm.seconds().items()}
+    split = None
+    if profile:
+        from ..utils.profile_solve import step_split
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dp.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with (torch.profiler.profile(activities=acts) if dp.rank == 0
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            dp.newton_step(u0, 1.0, amg_data=amg, pc=pc)
+            sync(dp.device)
+            wall = time.perf_counter() - t0
+        if prof is not None:
+            split = step_split(prof, wall, float(np.median(times)))
+        _barrier(dp)
+    gids = dp.part.elem_gid
+    u1 = dp.to_global(u1)
+    ranks = _gather({"step_s": times, "setup_s": setup})
+    if ranks is None:
+        return None
+    return {"step_s": [max(r["step_s"][i] for r in ranks)
+                       for i in range(reps)],
+            "iters": iters, "cg_reason": reasons, "exchange_s": ex,
+            "clock": "device" if dp.comm.nccl else "host",
+            "setup_s": [r["setup_s"] for r in ranks],
+            "u1": u1, "rnorm_in": rnorm_in, "rnorm": rnorm,
+            "elements": (gids >= 0).sum(axis=1).tolist(),
+            "owned": dp.halo_stats()["owned_per_shard"], "dofs": 3 * N,
+            "profile": split}
+
+
 def problem_task(rank, world, device, config: dict, jobs):
     """config: Config keyword arguments (device aside). jobs: a list of
     (name, arguments): ("residual", (u_global or None (zeros), load)),
     ("step", (owned blocks (world, 3, n_owned_max) in the JAX layout or
     None (zeros), load)), ("solve", keyword arguments of
-    DistributedProblem.solve). Launch counts and batch applies are set to
+    DistributedProblem.solve), ("fixed_step", keyword arguments of
+    fixed_step: reps, profile). Launch counts and batch applies are set to
     0 just before each job and read just after."""
     from ..interop import owned_from_jax
     from ..ops import fused_apply as fa
@@ -110,7 +194,9 @@ def problem_task(rank, world, device, config: dict, jobs):
     t1 = time.perf_counter()
     dp = DistributedProblem(prob)
     setup = {"problem_s": t1 - t0, "distributed_s": time.perf_counter() - t1,
-             "partition_s": dp.partition_seconds}
+             "partition_s": dp.partition_seconds,
+             "threads": {"torch": torch.get_num_threads(),
+                         **{k: os.environ.get(k) for k in THREAD_ENV}}}
     out = {"setup": _gather(setup), "halo": dp.halo_stats(),
            "use_mg": dp.use_mg, "n_elem_int": _gather(
                [lv.ra.n_elem_int for lv in dp.levels])}
@@ -131,6 +217,8 @@ def problem_task(rank, world, device, config: dict, jobs):
                                                            amg_data=amg)
             res = {"u1": dp.to_global(u1), "rnorm_in": rin, "rnorm": rn,
                    "iters": its, "step_norm": step, "unorm": unorm}
+        elif name == "fixed_step":
+            res = fixed_step(dp, **args)
         elif name == "solve":
             if device.type == "cuda":
                 torch.cuda.synchronize(device)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import re
 import sys
 import time
@@ -40,7 +41,10 @@ TOP = 8
 # cps::generic_cluster_kernel<physics, jacobian, T> (and generic_gmem_kernel),
 # or cps::generic_reg_kernel<physics, jacobian, T, body>
 FUSED = re.compile(
-    r"cps::\w+_kernel<\d+, (true|false), (?:\d+, \d+, )?\w+(?:, \d+)?>")
+    r"cps::\w+_kernel<\d+, (true|false), (?:(\d+), (\d+), )?\w+(?:, \d+)?>")
+# the profiler label of the distributed V-cycle's replicated AMG coarse
+# solve (parallel/driver.py)
+AMG_SCOPE = "amg coarse apply"
 
 
 def make_problem(box: int, multigrid: str, device, dtype=torch.float32,
@@ -68,6 +72,99 @@ def device_events(prof):
     cuda = torch.autograd.DeviceType.CUDA
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == cuda]
+
+
+def kernel_family(name: str) -> str:
+    """The family of a device operation by its name: "fused residual
+    (P,Q)" / "fused J.v (P,Q)" ("(generic)" where P, Q are set at run
+    time), "NCCL", "copies" (memcpy, memset), else "other"."""
+    m = FUSED.search(name)
+    if m:
+        mode = "J.v" if m.group(1) == "true" else "residual"
+        pq = f"({m.group(2)},{m.group(3)})" if m.group(2) else "(generic)"
+        return f"fused {mode} {pq}"
+    if "nccl" in name.lower():
+        return "NCCL"
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies"
+    return "other"
+
+
+def _in_scope(event, label: str, prefix: bool = False) -> bool:
+    """Whether `event` or an operation around it is named `label` (or,
+    with prefix, starts with it)."""
+    while event is not None:
+        if event.name.startswith(label) if prefix else event.name == label:
+            return True
+        event = event.cpu_parent
+    return False
+
+
+# the CUDA runtime calls of the host side of a step, by what the host does
+# in them: wait for the device, launch a kernel, copy
+HOST_CALLS = {"sync": ("Synchronize",), "launch": ("LaunchKernel",),
+              "copy": ("Memcpy", "Memset")}
+# the host's torch.distributed calls (their whole span, the enqueue of the
+# NCCL kernel included)
+COLLECTIVES = "c10d::"
+
+
+def step_split(prof, wall_s: float, step_s: float) -> dict:
+    """Device time of one profiled step by family (kernel_family; "other"
+    less the kernels launched under AMG_SCOPE, which go to "amg coarse
+    apply"): {family: {"launches", "ms"}}, the summed device ms, the busy
+    ms (the union of the device intervals: NCCL runs beside the compute
+    stream), the kernel launches, the profiled step's wall ms and the busy
+    share of `step_s`, the unprofiled step's wall; "host": {kind: {"calls",
+    "ms"}} of the CUDA runtime calls by HOST_CALLS and of the outermost
+    torch.distributed calls ("collectives")."""
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda
+           and e.name != AMG_SCOPE
+           and not getattr(e, "is_user_annotation", False)]
+    fam = collections.defaultdict(lambda: [0, 0.0])
+    spans = []
+    for e in evs:
+        row = fam[kernel_family(e.name)]
+        row[0] += 1
+        row[1] += e.time_range.elapsed_us() * 1e-3
+        spans.append((e.time_range.start, e.time_range.end))
+    amg = [k for e in prof.events() if e.device_type != cuda and e.kernels
+           and _in_scope(e, AMG_SCOPE) for k in e.kernels
+           if kernel_family(k.name) == "other"]
+    if amg:
+        ms = sum(k.duration for k in amg) * 1e-3
+        fam["amg coarse apply"] = [len(amg), ms]
+        fam["other"][0] -= len(amg)
+        fam["other"][1] -= ms
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_ms = busy_us * 1e-3
+    host = {k: [0, 0.0] for k in (*HOST_CALLS, "collectives")}
+    for e in prof.events():
+        if e.device_type == cuda:
+            continue
+        kind = None
+        if e.name.startswith(COLLECTIVES):
+            if not _in_scope(e.cpu_parent, COLLECTIVES, prefix=True):
+                kind = "collectives"
+        elif e.name.startswith("cu"):
+            kind = next((k for k, keys in HOST_CALLS.items()
+                         if any(x in e.name for x in keys)), None)
+        if kind is not None:
+            host[kind][0] += 1
+            host[kind][1] += e.time_range.elapsed_us() * 1e-3
+    return {"families": {k: {"launches": n, "ms": ms}
+                         for k, (n, ms) in sorted(fam.items())},
+            "host": {k: {"calls": n, "ms": ms} for k, (n, ms) in host.items()},
+            "device_ms": sum(ms for _, ms in fam.values()),
+            "busy_ms": busy_ms,
+            "launches": sum(n for k, (n, _) in fam.items()
+                            if k != "copies"),
+            "wall_ms": wall_s * 1e3, "step_ms": step_s * 1e3,
+            "busy_share": busy_ms * 1e-3 / step_s}
 
 
 def profile(prob: ElasticityProblem) -> dict:

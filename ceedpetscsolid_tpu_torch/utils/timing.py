@@ -3,9 +3,11 @@ elasticity.c:128-131, 230-233, 381-384, 627-630 register the stages "DM and
 Vector Setup", "libCEED Setup", "SNES Setup", "SNES Solve", surfaced by
 -log_view).
 
-Each ElasticityProblem owns its StageLog. Stage times are host wall clock;
-a stage that ends with device work still queued is synchronised first
-(`sync`), so the time includes that work. `cuda_time_ms` times one call on
+Each ElasticityProblem and each DistributedProblem owns a StageLog on its
+device (which has no default: a log that forgot it would time nothing on
+the card). Stage times are host wall clock; a stage that ends with device
+work still queued is synchronised first (`sync`), so the time includes that
+work. `cuda_time_ms` times one call on
 the card with CUDA events (kernel and operator timings), the host's enqueue
 included; `cuda_device_ms` times the device's work alone.
 """
@@ -100,9 +102,9 @@ def cuda_device_ms(fn, reps: int = 20, inner: int = 10,
 
 @dataclass
 class StageLog:
-    """Accumulating named phase timers."""
+    """Accumulating named phase timers on `device`."""
 
-    device: torch.device = torch.device("cpu")
+    device: torch.device
     stages: dict = field(default_factory=dict)
     _order: list = field(default_factory=list)
 
@@ -113,12 +115,19 @@ class StageLog:
             yield
         finally:
             sync(self.device)
-            dt = time.perf_counter() - t0
-            if name not in self.stages:
-                self.stages[name] = [0.0, 0]
-                self._order.append(name)
-            self.stages[name][0] += dt
-            self.stages[name][1] += 1
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Count `seconds` under `name`, as one more call of the stage."""
+        if name not in self.stages:
+            self.stages[name] = [0.0, 0]
+            self._order.append(name)
+        self.stages[name][0] += seconds
+        self.stages[name][1] += 1
+
+    def seconds(self) -> dict:
+        """{stage: seconds so far}, in the order the stages first ran."""
+        return {name: self.stages[name][0] for name in self._order}
 
     def report(self) -> str:
         """-log_view style summary."""

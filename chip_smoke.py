@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase18 d     # phase 18's parts alone
+    python3 chip_smoke.py --phase20       # the whole rank-count sweep
 
 Phases, each of which raises on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -180,6 +181,24 @@ Phases, each of which raises on failure:
      answer as phase 7 holds p-MG to phase 6's Jacobi solve: its solve
      wall and, from a second solve under torch.profiler, its fused J.v
      device ms.
+ 20. the rank-count sweeps (utils/weak_scaling.py, the counterpart of the
+     JAX package's scripts/weak_scaling.py): the jax series' fixed-work
+     Newton step (hyperFS p3, faces (24, 24, 4n), p-MG + AMG, ksp_rtol 0,
+     10 CG iterations, float32, SWEEP_REPS timed reps) at n = 1 (one NCCL
+     rank in this process) and n = 2 (two gloo ranks on this card: host
+     staging, not a scaling point), and the invariance series (a
+     scrambled HEX27 file at degree 2, two increments, solved to Newton
+     rtol 1e-5) on one NCCL rank and two gloo ranks against the serial
+     solve; each point's numbers with the card line. Checks: every point
+     ran 10 CG iterations, every rank's batches the fused kernel, the
+     invariance points the serial SNES, KSP within +2 and u within
+     DIST_TOL. `python3 chip_smoke.py --phase20` runs, after the build
+     alone, the whole sweep instead: the jax, card and unstructured
+     series and the invariance series on 1, 2 and 4 NCCL cards where the
+     machine has them (it says which n it skipped), SWEEP_FULL_REPS reps
+     and rank 0's profile of one step a point, and also checks that the
+     box series' halo a rank is constant for n > 1; its records go to
+     build/chip_smoke/weak/.
 In phases 10-13 CG may exit on p.Ap <= 0 (the sign of an AMG cycle that
 stopped being SPD in float32) no more often than in the float64 twin
 (phase 12's clamp solves, whose tangents are themselves indefinite at the
@@ -338,6 +357,8 @@ DIST_RTOL = 1e-5
 DIST_WORLD = 4
 DIST_TOL = 1e-5                     # |G| parity and u (float32)
 KERNEL_PATHS = {"bulk", "async", "generic", "generic_gmem", "generic_cluster"}
+SWEEP_REPS = 3                      # phase 20's timed steps a point
+SWEEP_FULL_REPS = 5                 # --phase20's
 CU_SOURCE = "ceedpetscsolid_tpu_torch/csrc/fused_apply.cu"
 PROBE_SOURCE = "ceedpetscsolid_tpu_torch/csrc/gather_probe.cu"
 PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
@@ -486,66 +507,6 @@ def check_kernel(label, mesh, degree, device, phys, qextra=0,
     if report == "float64":
         return e64["residual ve"], e64["J.v ve"]
     return e_r, e_j
-
-
-def write_exodus_hex27(path, mesh, side_sets):
-    """A netCDF-3 classic Exodus-II file of `mesh`, one HEX27 block (the 19
-    higher-order nodes of each element at its lattice midpoints, numbered
-    after the corners; the reader keeps the corners only) and `side_sets`
-    {id: (element, local face) pairs}."""
-    from scipy.io import netcdf_file
-
-    from ceedpetscsolid_tpu_torch.mesh.core import (
-        EXODUS_HEX8_TO_TENSOR, EXODUS_SIDE_TO_FACE)
-
-    side = {f: s for s, f in EXODUS_SIDE_TO_FACE.items()}
-    nv, ne = mesh.num_vertices, mesh.num_elements
-    xe = mesh.vertices[mesh.connectivity]                    # (e, 8, 3)
-    mids = []
-    for k, j, i in np.ndindex(3, 3, 3):
-        if 1 not in (i, j, k):
-            continue
-        w = np.array([(i / 2 if a else 1 - i / 2) * (j / 2 if b else 1 - j / 2)
-                      * (k / 2 if c else 1 - k / 2)
-                      for c in (0, 1) for b in (0, 1) for a in (0, 1)])
-        mids.append(np.einsum("v,evd->ed", w, xe))
-    coords = np.concatenate([mesh.vertices,
-                             np.stack(mids, axis=1).reshape(-1, 3)])
-    nodes = np.concatenate([mesh.connectivity[:, EXODUS_HEX8_TO_TENSOR],
-                            np.arange(nv, nv + 19 * ne).reshape(ne, 19)], 1)
-    nc = netcdf_file(str(path), "w")
-    try:
-        for name, n in (("num_dim", 3), ("num_nodes", coords.shape[0]),
-                        ("num_elem", ne), ("num_el_blk", 1),
-                        ("num_el_in_blk1", ne), ("num_nod_per_el1", 27),
-                        ("num_side_sets", len(side_sets))):
-            nc.createDimension(name, n)
-        for d, name in enumerate(("coordx", "coordy", "coordz")):
-            nc.createVariable(name, "d", ("num_nodes",))[:] = coords[:, d]
-        blk = nc.createVariable("connect1", "i",
-                                ("num_el_in_blk1", "num_nod_per_el1"))
-        blk[:] = (nodes + 1).astype(np.int32)
-        blk.elem_type = "HEX27"
-        nc.createVariable("ss_prop1", "i", ("num_side_sets",))[:] = \
-            np.array(sorted(side_sets), dtype=np.int32)
-        for i, sid in enumerate(sorted(side_sets), start=1):
-            fs = side_sets[sid]
-            nc.createDimension(f"num_side_ss{i}", fs.shape[0])
-            nc.createVariable(f"elem_ss{i}", "i", (f"num_side_ss{i}",))[:] = \
-                (fs[:, 0] + 1).astype(np.int32)
-            nc.createVariable(f"side_ss{i}", "i", (f"num_side_ss{i}",))[:] = \
-                np.array([side[int(f)] for f in fs[:, 1]], dtype=np.int32)
-    finally:
-        nc.close()
-
-
-def faces_on(mesh, axis, value):
-    """(element, local face) pairs of `mesh` on the plane x_axis = value."""
-    from ceedpetscsolid_tpu_torch.mesh.core import FACE_VERTICES
-
-    on = np.isclose(mesh.vertices[:, axis], value, atol=1e-12)
-    e, f = np.nonzero(on[mesh.connectivity[:, FACE_VERTICES]].all(axis=2))
-    return np.stack([e, f], axis=1).astype(np.int64)
 
 
 def by_coordinates(prob, u):
@@ -829,6 +790,128 @@ def dist_phase(dev, card, exo, phase11, parts="abcd"):
     log(f"    phase 18 {time.perf_counter() - t18:.1f} s ({card})")
     return counts
 
+def log_weak(rec, note=""):
+    """A weak point's numbers on two or three lines."""
+    st = rec["setup_s"]
+
+    def parts(phase):
+        return f"{phase} {st.get(phase, 0.0):.3f} (" + ", ".join(
+            f"{k.split(': ')[1]} {v:.3f}" for k, v in st.items()
+            if k.startswith(phase + ": ")) + ")"
+    log(f"[20] {rec['series']} n = {rec['n']} {rec['backend']}{note}: "
+        f"{rec['dofs']} DoF, {rec['elements_per_rank']} elements a rank, "
+        f"halo {rec['halo_per_rank']} ({rec['halo_max_bytes_f32']} B f32 "
+        f"max), CG {rec['ksp_its']}; step ms min / median / max "
+        f"{rec['step_ms_min']:.3f} / {rec['step_ms_median']:.3f} / "
+        f"{rec['step_ms_max']:.3f}; exchanges a step ({rec['clock']} clock) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["exchange_ms"].items())
+        + f" ms ({rec['card']})")
+    log(f"    setup s (rank 0): {parts('refresh_amg')}, {parts('pc_setup')}"
+        f"; ElasticityProblem "
+        f"{max(rec['problem_s']):.2f}, DistributedProblem "
+        f"{max(rec['distributed_s']):.2f} (max over ranks); fused launches "
+        "by rank " + ", ".join(f"{c['residual']}/{c['jacobian']}"
+                               for c in rec["launches"]))
+    prof = rec["profile"]
+    if prof:
+        log(f"    profile (rank 0, one step): {prof['launches']} launches, "
+            f"device {prof['device_ms']:.3f} ms, busy {prof['busy_ms']:.3f}"
+            f" ms = {prof['busy_share']:.3f} of the median step; "
+            + ", ".join(f"{k} {v['launches']} / {v['ms']:.3f} ms"
+                        for k, v in prof["families"].items())
+            + "; host calls " + ", ".join(
+                f"{k} {v['calls']} / {v['ms']:.3f} ms"
+                for k, v in prof["host"].items())
+            + f"; profiled step {prof['wall_ms']:.3f} ms")
+
+
+def log_invariance(rec):
+    ser = rec["serial"]
+    log(f"[20] invariance n = {rec['n']} {rec['backend']}: SNES "
+        f"{rec['snes']} / serial {ser['snes']}, KSP {rec['ksp']} / "
+        f"{ser['ksp']}, rnorm {rec['rnorm']:.3e}, |u - u_serial| / "
+        f"|u_serial| {rec['rel_du']:.2e}, solve {rec['wall_s']:.3f} s "
+        f"(serial {ser['wall_s']:.3f} s), halo max {rec['halo_max']} "
+        f"({rec['card']})")
+
+
+def sweep_phase(card, full=False):
+    """Phase 20 (see the module docstring); full: --phase20's sweep.
+    Raises listing every failed check."""
+    import torch
+
+    from ceedpetscsolid_tpu_torch.utils import weak_scaling as ws
+
+    t20 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "weak"
+    store = root / "store"
+    f32 = torch.float32
+    failures, records, summaries = [], [], []
+    n_cards = torch.cuda.device_count()
+    ranks = [n for n in (1, 2, 4) if n <= n_cards] if full else [1]
+    if full and len(ranks) < 3:
+        log(f"[20] n = {[n for n in (1, 2, 4) if n > n_cards]} not run: "
+            f"NCCL runs one rank a card and this machine has {n_cards}")
+    reps = SWEEP_FULL_REPS if full else SWEEP_REPS
+
+    def weak(series, n, backend, note=""):
+        rec = ws.weak_point(series, n, backend, "cuda", store, reps,
+                            profile=full, dtype=f32,
+                            in_process=not full and backend == "nccl",
+                            card_name=card)
+        log_weak(rec, note)
+        failures.extend(ws.weak_failures(rec, on_card=True))
+        records.append(rec)
+        return rec
+
+    for series in ws.WEAK if full else ("jax",):
+        recs = [weak(series, n, "nccl") for n in ranks
+                if series != "unstructured" or n in ws.UNSTRUCTURED_RANKS]
+        if not full:
+            weak(series, 2, "gloo", " on one card (host staging, not a "
+                 "scaling point)")
+            continue
+        sm = ws.weak_summary(recs)
+        summaries.append(sm)
+        log(f"[20] {series} summary (NCCL, one rank a card): " + "; ".join(
+            f"n = {p['n']} E {p['efficiency']:.3f}, "
+            f"{p['dofs_per_s_card']:.4g} DoF/s a card"
+            for p in sm["points"]) + f"; halo constant {sm['halo_constant']}"
+            f" ({card})")
+        if series != "unstructured" and not sm["halo_constant"]:
+            failures.append(f"{series}: the halo a rank is not constant for "
+                            "n > 1")
+
+    cfg = ws.invariance_config(f32, root / "meshes")
+    serial, u_ser = ws.invariance_serial(cfg, torch.device("cuda"))
+    inv = [("nccl", n, not full) for n in ranks]
+    if not full:
+        inv.append(("gloo", 2, False))
+    recs = []
+    for backend, n, in_process in inv:
+        rec = ws.invariance_point(cfg, n, backend, "cuda", store, serial,
+                                  u_ser, in_process=in_process,
+                                  card_name=card)
+        rec.pop("u")
+        log_invariance(rec)
+        failures.extend(ws.invariance_failures(rec, DIST_TOL, on_card=True))
+        records.append(rec)
+        recs.append(rec)
+    if full:
+        sm = ws.invariance_summary(recs)
+        summaries.append(sm)
+        log("[20] invariance: strong-scaling speedup wall(1) / wall(n) "
+            + ", ".join(f"n = {p['n']} {p['speedup']:.3f}"
+                        for p in sm["points"]) + f" ({card})")
+    root.mkdir(parents=True, exist_ok=True)
+    (root / ("phase20_full.json" if full else "phase20.json")).write_text(
+        json.dumps({"card": card, "records": records,
+                    "summaries": summaries}, indent=1) + "\n")
+    log(f"    phase 20 {time.perf_counter() - t20:.1f} s ({card})")
+    if failures:
+        raise AssertionError("[20] " + "; ".join(failures))
+
+
 def main():
     try:
         import torch
@@ -846,7 +929,8 @@ def main():
     from ceedpetscsolid_tpu_torch import cli, native
     from ceedpetscsolid_tpu_torch.csrc.build import build
     from ceedpetscsolid_tpu_torch.mesh.box import box_mesh
-    from ceedpetscsolid_tpu_torch.mesh.scrambled import scrambled_box_mesh
+    from ceedpetscsolid_tpu_torch.mesh.scrambled import (
+        faces_on, scrambled_box_mesh, write_exodus_hex27)
     from ceedpetscsolid_tpu_torch.models import Physics
     from ceedpetscsolid_tpu_torch.ops import fused_apply as fa
     from ceedpetscsolid_tpu_torch.post.vtu import write_vtu
@@ -1049,6 +1133,29 @@ def main():
                     and 1 <= p_.cluster <= fa.CLUSTER_MAX
                     and p_.smem <= optin and p_.work == 0):
                 raise AssertionError(f"{label} cluster plan {p_}")
+    # the gmem body's times at its 7^3 edge, which no main path launches:
+    # device ms beside the plain version's and the bound from shapes
+    box, P = GMEM_EDGES[-1][1], GMEM_EDGES[-1][2]
+    f, q, u, v = make_case(box_mesh(box), P - 1, torch.float64, dev, 7,
+                           q1d=P, scale=scale(P))
+    conn, b = f.restr.conn, f.basis
+    _, st = fa.residual_plain(u, conn, q, b, phys, "hyperFS")
+    calls = {"residual": (lambda: fa.residual(u, conn, q, b, phys, "hyperFS"),
+                          lambda: fa.residual_plain(u, conn, q, b, phys,
+                                                    "hyperFS")),
+             "jacobian": (lambda: fa.jacobian(v, conn, q, st, b, phys,
+                                              "hyperFS"),
+                          lambda: fa.jacobian_plain(v, conn, q, st, b, phys,
+                                                    "hyperFS"))}
+    for mode, (kernel, plain) in calls.items():
+        d, d0 = (device_ms(fn, reps=5, inner=1) for fn in (kernel, plain))
+        bd, by = fa.bound_ms("hyperFS", mode, P, P, f.nelem,
+                             f.space.num_nodes, torch.float64)
+        log(f"    gmem body hyperFS ({P},{P}) f64 {box[0]}^3 {mode}: device "
+            f"{d:.4f} ms (plain {d0:.4f} ms), bound {bd:.4f} ms ({by}), "
+            f"share {bd / d:.3f} ({card})")
+    del f, q, u, v, st, calls
+    torch.cuda.empty_cache()
     ragged = [p_ for p_ in gplans if p_.body == "gmem"
               and p_.tiles == fa.GMEM_BLOCKS_PER_SM * sms]
     log(f"    gmem persistent grids of {fa.GMEM_BLOCKS_PER_SM * sms} blocks "
@@ -1758,6 +1865,9 @@ def main():
                          if ph == "hyperFS" and mm == m)
                   for m in ("residual", "jacobian")}
 
+    # ---- 20. the rank-count sweeps ------------------------------------------
+    sweep_phase(card)
+
     # ---- 19. the high degrees: the generic tile's cluster body in solves ---
     from ceedpetscsolid_tpu_torch.utils.profile_solve import (
         FUSED, device_events)
@@ -1970,7 +2080,8 @@ def phase18_alone(parts):
         return 2
     from ceedpetscsolid_tpu_torch import native
     from ceedpetscsolid_tpu_torch.csrc.build import build
-    from ceedpetscsolid_tpu_torch.mesh.scrambled import scrambled_box_mesh
+    from ceedpetscsolid_tpu_torch.mesh.scrambled import (
+        faces_on, scrambled_box_mesh, write_exodus_hex27)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
@@ -1993,9 +2104,34 @@ def phase18_alone(parts):
     return 0
 
 
+def phase20_alone():
+    """The whole rank-count sweep after the build alone, e.g. on a
+    four-card machine."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ceedpetscsolid_tpu_torch import native
+    from ceedpetscsolid_tpu_torch.csrc.build import build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        amg_build = pool.submit(native.build)
+        build()
+    amg_build.result()
+    card = card_line()
+    log(f"[2] build {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.device_count()} card(s): {card}")
+    sweep_phase(card, full=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase18"] and len(sys.argv) == 3:
         sys.exit(phase18_alone(sys.argv[2]))
+    if sys.argv[1:] == ["--phase20"]:
+        sys.exit(phase20_alone())
     if sys.argv[1:]:
-        sys.exit(f"usage: {sys.argv[0]} [--phase18 PARTS]")
+        sys.exit(f"usage: {sys.argv[0]} [--phase18 PARTS | --phase20]")
     sys.exit(main())

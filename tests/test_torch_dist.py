@@ -47,8 +47,10 @@ def test_partition_is_a_copy():
     assert t.split("\n")[1:] == j.split("\n")[1:]
 
 
-@pytest.mark.parametrize("path", sorted(PORT_PARALLEL.glob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize(
+    "path", sorted(PORT_PARALLEL.glob("*.py"))
+    + [PORT_PARALLEL.parent / "utils" / "weak_scaling.py"],
+    ids=lambda p: p.name)
 def test_parallel_imports_neither_jax_nor_the_jax_package(path):
     for node in ast.walk(ast.parse(path.read_text())):
         names = ([a.name for a in node.names] if isinstance(node, ast.Import)

@@ -856,3 +856,24 @@ def test_dist_gloo4_every_rank_launches_the_kernel(gloo4_on_card):
             for mode in ("residual", "jacobian") if job == "solve" else (
                     "residual",):
                 assert c["launches"][mode] == c["batch_applies"][mode] > 0
+
+
+def test_weak_scaling_fixed_step_on_one_nccl_rank(cuda, tmp_path):
+    """The jax series' n = 1 point (hyperFS p3 on 24 x 24 x 4, p-MG +
+    AMG, float32) as the fixed_step job on one NCCL rank in this process:
+    every timed step ran 10 CG iterations, and every batch of every phase
+    was a fused-kernel launch."""
+    import torch.distributed as tdist
+
+    from ceedpetscsolid_tpu_torch import native
+    from ceedpetscsolid_tpu_torch.utils import weak_scaling as ws
+
+    if not tdist.is_nccl_available():
+        pytest.skip("torch was built without NCCL")
+    native.build()
+    rec = ws.weak_point("jax", 1, "nccl", "cuda", tmp_path / "store", reps=2,
+                        dtype=torch.float32, in_process=True)
+    assert rec["ksp_its"] == [ws.KSP_ITS] * 2 and rec["fixed_work"]
+    assert rec["dofs"] == 207_831 and rec["elements_per_rank"] == [2304]
+    assert rec["fused_only"]
+    assert not ws.weak_failures(rec, on_card=True)
