@@ -13,6 +13,10 @@ Conventions (matching qfunctions/*.h of the reference):
 
 Physical gradient: gradu[c, k] = sum_m du_ref[c, m] dXdx[m, k]
 Output weighting:  dv_ref[c, k] = sum_m sigma[c, m] dXdx[k, m] * wdetJ
+
+Under the profiler the 3x3 products are spans (qf/<name>,
+utils/timing.fine): each is tens of elementwise launches, so a trace can
+name the device's idle time inside a pointwise function by them.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from ..utils.timing import fine
 
 
 @dataclass(frozen=True)
@@ -99,26 +105,29 @@ class Mat3:
 
 def mat_mul(a: Mat3, b: Mat3) -> Mat3:
     """(A B)[j, k] = sum_m A[j, m] B[m, k]."""
-    return Mat3.from_rows(
-        [[a[j, 0] * b[0, k] + a[j, 1] * b[1, k] + a[j, 2] * b[2, k]
-          for k in range(3)] for j in range(3)]
-    )
+    with fine("qf/mat_mul"):
+        return Mat3.from_rows(
+            [[a[j, 0] * b[0, k] + a[j, 1] * b[1, k] + a[j, 2] * b[2, k]
+              for k in range(3)] for j in range(3)]
+        )
 
 
 def mat_mul_T2(a: Mat3, b: Mat3) -> Mat3:
     """(A B^T)[j, k] = sum_m A[j, m] B[k, m]."""
-    return Mat3.from_rows(
-        [[a[j, 0] * b[k, 0] + a[j, 1] * b[k, 1] + a[j, 2] * b[k, 2]
-          for k in range(3)] for j in range(3)]
-    )
+    with fine("qf/mat_mul_T2"):
+        return Mat3.from_rows(
+            [[a[j, 0] * b[k, 0] + a[j, 1] * b[k, 1] + a[j, 2] * b[k, 2]
+              for k in range(3)] for j in range(3)]
+        )
 
 
 def mat_T1_mul(a: Mat3, b: Mat3) -> Mat3:
     """(A^T B)[j, k] = sum_n A[n, j] B[n, k]."""
-    return Mat3.from_rows(
-        [[a[0, j] * b[0, k] + a[1, j] * b[1, k] + a[2, j] * b[2, k]
-          for k in range(3)] for j in range(3)]
-    )
+    with fine("qf/mat_T1_mul"):
+        return Mat3.from_rows(
+            [[a[0, j] * b[0, k] + a[1, j] * b[1, k] + a[2, j] * b[2, k]
+              for k in range(3)] for j in range(3)]
+        )
 
 
 def mat_trace(a: Mat3):
@@ -127,12 +136,13 @@ def mat_trace(a: Mat3):
 
 def mat_ddot(a: Mat3, b: Mat3):
     """A : B = sum_jk A[j,k] B[j,k]."""
-    acc = a[0, 0] * b[0, 0]
-    for j in range(3):
-        for k in range(3):
-            if j or k:
-                acc = acc + a[j, k] * b[j, k]
-    return acc
+    with fine("qf/ddot"):
+        acc = a[0, 0] * b[0, 0]
+        for j in range(3):
+            for k in range(3):
+                if j or k:
+                    acc = acc + a[j, k] * b[j, k]
+        return acc
 
 
 def mat_eye_plus(a: Mat3) -> Mat3:
@@ -169,7 +179,8 @@ def ref_to_phys_grad(du_ref: Mat3, dXdx: Mat3) -> Mat3:
 
 def weight_test_grad(sigma: Mat3, dXdx: Mat3, wdetJ) -> Mat3:
     """dv_ref[c, k] = sum_m sigma[c, m] dXdx[k, m] * wdetJ."""
-    return mat_mul_T2(sigma, dXdx) * wdetJ
+    with fine("qf/test_grad"):
+        return mat_mul_T2(sigma, dXdx) * wdetJ
 
 
 def log1p_series(x: torch.Tensor) -> torch.Tensor:

@@ -10,13 +10,16 @@ dS = lambda (C^{-1}:dE) C^{-1} - 2(lambda log J - mu) C^{-1} dE C^{-1},
 dP = graddu S + F dS (hyperFS.h:414-451).
 
 These plain-torch planes functions are the reference the CUDA kernel in
-csrc/fused_apply.cu is transcribed from and tested against.
+csrc/fused_apply.cu is transcribed from and tested against; on the card
+they build the preconditioner's diagonals and element matrices. Under the
+profiler their stages are spans (qf/*, utils/timing.fine).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.timing import fine
 from .base import (
     Mat3,
     Physics,
@@ -70,12 +73,15 @@ def _green_lagrange_2E(gradu: Mat3) -> Mat3:
 
 def common_fs(gradu: Mat3, phys: Physics):
     """commonFS (hyperFS.h:85-142): returns (S, Cinv, detC_m1, llnj, E2)."""
-    E2 = _green_lagrange_2E(gradu)
-    detC_m1 = _det_cm1(E2)
-    C = mat_eye_plus(E2)
-    Cinv = _sym_inv(C, detC_m1 + 1.0)
-    llnj = phys.lam * log1p_series_shifted(detC_m1) / 2.0
-    S = llnj * Cinv + phys.mu * mat_mul(Cinv, E2)
+    with fine("qf/E2"):
+        E2 = _green_lagrange_2E(gradu)
+    with fine("qf/Cinv"):
+        detC_m1 = _det_cm1(E2)
+        C = mat_eye_plus(E2)
+        Cinv = _sym_inv(C, detC_m1 + 1.0)
+    with fine("qf/S"):
+        llnj = phys.lam * log1p_series_shifted(detC_m1) / 2.0
+        S = llnj * Cinv + phys.mu * mat_mul(Cinv, E2)
     return S, Cinv, detC_m1, llnj, E2
 
 
@@ -95,13 +101,16 @@ def jacobian_planes(ddu_ref: Mat3, qdata, gradu: Mat3, phys: Physics) -> Mat3:
     graddu = ref_to_phys_grad(ddu_ref, dXdx)
     S, Cinv, _, llnj, _ = common_fs(gradu, phys)
     F = mat_eye_plus(gradu)
-    # dE = 1/2 (graddu^T F + F^T graddu)  (hyperFS.h:382-389)
-    gTF = mat_T1_mul(graddu, F)
-    dE = 0.5 * (gTF + gTF.T)
-    cinv_dE = mat_ddot(Cinv, dE)
-    CidECi = mat_mul(Cinv, mat_mul(dE, Cinv))
-    dS = phys.lam * cinv_dE * Cinv - 2.0 * (llnj - phys.mu) * CidECi
-    dP = mat_mul(graddu, S) + mat_mul(F, dS)
+    with fine("qf/dE"):
+        # dE = 1/2 (graddu^T F + F^T graddu)  (hyperFS.h:382-389)
+        gTF = mat_T1_mul(graddu, F)
+        dE = 0.5 * (gTF + gTF.T)
+        cinv_dE = mat_ddot(Cinv, dE)
+    with fine("qf/dS"):
+        CidECi = mat_mul(Cinv, mat_mul(dE, Cinv))
+        dS = phys.lam * cinv_dE * Cinv - 2.0 * (llnj - phys.mu) * CidECi
+    with fine("qf/dP"):
+        dP = mat_mul(graddu, S) + mat_mul(F, dS)
     return weight_test_grad(dP, dXdx, wdetJ)
 
 

@@ -22,6 +22,7 @@ import scipy.sparse as sp
 import torch
 
 from ..models.base import Mat3
+from ..utils.timing import fine
 
 
 def make_element_matrices(jacobian_qf, phys, basis, dtype):
@@ -42,11 +43,13 @@ def make_element_matrices(jacobian_qf, phys, basis, dtype):
         for c2 in range(3):
             row = []
             for d2 in range(3):
-                du = torch.zeros((3, 3, nelem, Q3), dtype=dtype,
-                                 device=qdata.device)
-                du[c2, d2] = 1.0
-                # ddv[c1, d1, e, q] = K[c1, d1, c2, d2]
-                row.append(jacobian_qf(du, qdata, st, phys))
+                # one unit-gradient application, a span under the profiler
+                with fine("op/elem_mats"):
+                    du = torch.zeros((3, 3, nelem, Q3), dtype=dtype,
+                                     device=qdata.device)
+                    du[c2, d2] = 1.0
+                    # ddv[c1, d1, e, q] = K[c1, d1, c2, d2]
+                    row.append(jacobian_qf(du, qdata, st, phys))
             cols.append(torch.stack(row, dim=0))
         K = torch.stack(cols, dim=0)        # (c2, d2, c1, d1, e, q)
         # tmp[c2, d2, c1, i, e, q] = sum_d1 grad[d1, q, i] K[...]

@@ -7,7 +7,9 @@ the reference (src/setuplibceed.c:529-542). Every model's residual and
 Jacobian run the first four stages as one fused element apply
 (ops/fused_apply.py: the hand-written CUDA kernel on the GPU, plain torch on
 the CPU), its pointwise physics named by a fused_apply.PHYSICS entry; the
-owner-sum is the deterministic Restriction.scatter_add.
+owner-sum is the deterministic Restriction.scatter_add. Under the profiler
+the fused residual and J.v are spans, op/residual and op/jv, beside the
+owner-sum's op/owner_sum (utils/timing.fine).
 
 One factory serves every p-multigrid level (spaces coarse -> fine). Each
 level applies its physics either at the FINE level's Gauss points through a
@@ -39,6 +41,7 @@ import torch
 from ..device import default_dtype, select_device
 from ..mesh.fespace import FESpace
 from ..models.base import Mat3
+from ..utils.timing import fine
 from . import fused_apply, geometry
 from .basis import Basis3D, _kron3, lagrange_matrices
 from .quadrature import gauss
@@ -161,8 +164,9 @@ class OperatorFactory:
         pw = fused_apply.pointwise(physics)
 
         def apply(u, qdata):
-            ve, stash = fused_apply.residual(u, restr.conn, qdata, basis, phys,
-                                             pw)
+            with fine("op/residual"):
+                ve, stash = fused_apply.residual(u, restr.conn, qdata, basis,
+                                                 phys, pw)
             return restr.scatter_add(ve), stash
 
         return apply
@@ -172,8 +176,9 @@ class OperatorFactory:
         pw = fused_apply.pointwise(physics)
 
         def apply(v, qdata, stash):
-            ve = fused_apply.jacobian(v, restr.conn, qdata, stash, basis, phys,
-                                      pw)
+            with fine("op/jv"):
+                ve = fused_apply.jacobian(v, restr.conn, qdata, stash, basis,
+                                          phys, pw)
             return restr.scatter_add(ve)
 
         return apply
@@ -319,10 +324,12 @@ def element_diagonal(jacobian_qf: Callable, phys, basis: Basis3D) -> Callable:
                          device=qdata.device)
         for c2 in range(3):
             for d2 in range(3):
-                du[c2, d2] = 1.0
-                Krow = jacobian_qf(du, qdata, st, phys)[c2]   # (3, e, q)
-                du[c2, d2] = 0.0
-                diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2], Krow)
+                with fine("op/diag"):       # one unit-gradient application
+                    du[c2, d2] = 1.0
+                    Krow = jacobian_qf(du, qdata, st, phys)[c2]  # (3, e, q)
+                    du[c2, d2] = 0.0
+                    diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2],
+                                               Krow)
         return diag_e
 
     return fn

@@ -5,12 +5,16 @@ The CeedElemRestriction analog (reference src/setuplibceed.c:194-240).
 Component-major layout: L-vectors are (ncomp, num_nodes), E-vectors are
 (ncomp, nelem, P3). Constrained (Dirichlet) DOFs are not encoded in the
 indices; boundary conditions are applied by masking at the solver level.
+Under the profiler the owner-sum is the span op/owner_sum, with its device
+ms (utils/timing.fine).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils.timing import fine
 
 
 class Restriction:
@@ -61,9 +65,10 @@ class Restriction:
 
     def scatter_add(self, ve: torch.Tensor) -> torch.Tensor:
         """(ncomp, nelem, P3) -> (ncomp, num_nodes), summed over elements."""
-        ncomp = ve.shape[0]
-        ext = torch.cat([ve.reshape(ncomp, -1),
-                         ve.new_zeros((ncomp, 1))], dim=1)
-        parts = [ext.index_select(1, idx).reshape(ncomp, -1, K).sum(dim=2)
-                 for K, idx in self._t_blocks]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        with fine("op/owner_sum", stream=ve.device):
+            ncomp = ve.shape[0]
+            ext = torch.cat([ve.reshape(ncomp, -1),
+                             ve.new_zeros((ncomp, 1))], dim=1)
+            parts = [ext.index_select(1, idx).reshape(ncomp, -1, K).sum(dim=2)
+                     for K, idx in self._t_blocks]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)

@@ -46,7 +46,7 @@ from ..solve.amg import AMGPreconditioner
 from ..solve.cg import pcg
 from ..solve.newton import NewtonOptions, NewtonPolicy
 from ..utils.profile_solve import AMG_SCOPE
-from ..utils.timing import StageLog
+from ..utils.timing import StageLog, fine, span
 from . import mg as dmg
 from .dist import Comm, ddot, dnorm
 from .partition import gather_owned_to_global, partition_space
@@ -369,15 +369,12 @@ class DistributedProblem:
             vals = self._assembler0.assemble_values(allm[self._elem_order])
         with stage("refresh_amg: d2h"):
             vals = vals.to(torch.float64).cpu().numpy()
-        t0 = time.perf_counter()
-        self._amg.setup(self._assembler0.from_values(vals))
-        # AMGPreconditioner.setup times its native call and its extraction
-        # and upload (synchronised); the host CSR it is given counts with
-        # the native setup
-        upload = self._amg.last_times["upload"]
-        self.log.add("refresh_amg: native setup",
-                     time.perf_counter() - t0 - upload)
-        self.log.add("refresh_amg: extract and upload", upload)
+        # the host CSR counts with the native setup; the upload ends
+        # synchronised (AMGPreconditioner.upload)
+        with span("refresh_amg: native setup", log=self.log):
+            self._amg.build(self._assembler0.from_values(vals))
+        with span("refresh_amg: extract and upload", log=self.log):
+            self._amg.upload()
         return self._amg.data
 
     def pc_setup(self, u_owned, load_increment: float):
@@ -417,8 +414,8 @@ class DistributedProblem:
         def coarse_solve(b0):
             if amg_data is None:
                 return dmg.chebyshev_dist(A[0], b0, dinvs[0], *bounds[0], 30)
-            # a profiler label (utils/profile_solve.step_split): no sync
-            with torch.profiler.record_function(AMG_SCOPE):
+            # a span under the profiler (utils/profile_solve.step_split)
+            with fine(AMG_SCOPE):
                 g = dmg.owned_to_replicated_global(b0, lv[0], self.comm)
                 xf = self._amg.apply(g.T.reshape(-1), amg_data)
                 out = dmg.replicated_global_to_owned(xf.reshape(-1, 3).T,

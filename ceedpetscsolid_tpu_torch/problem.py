@@ -23,7 +23,6 @@ float64 on the problem's device; a solve can stop at a load
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -43,7 +42,7 @@ from .solve.amg import AMGPreconditioner
 from .solve.cg import estimate_extreme_eigs, pcg
 from .solve.newton import NewtonOptions, NewtonResult, newton_solve
 from .solve.pmg import MGLevel, make_vcycle
-from .utils.timing import StageLog, sync
+from .utils.timing import StageLog, count, request, span, sync
 
 
 @dataclass
@@ -172,7 +171,6 @@ class ElasticityProblem:
         self.device = config.device
         self.dtype = config.dtype
         self.log = StageLog(self.device)
-        t0 = time.perf_counter()
 
         # --- mesh ("DM and Vector Setup" stage, elasticity.c:128-131) ----
         with self.log.stage("DM and Vector Setup"):
@@ -284,11 +282,13 @@ class ElasticityProblem:
             self._use_amg = (config.coarse_solve == "amg"
                              and config.multigrid != "none")
             if self._use_amg:
-                self._setup_amg()
-        self.setup_time = time.perf_counter() - t0
-        self._pc_time = 0.0
+                with span("setup/amg"):
+                    self._setup_amg()
+        self.setup_time = sum(self.log.seconds().values())
         self._pc_cache = None
-        self.pc_setups = 0          # preconditioner builds in the last solve
+        # the totals of the last request (utils/timing.request) this
+        # problem ran: amg_times, pc_setups
+        self._last_totals = None
         self.cg_exits = {}          # CGResult.reason -> count, last solve
         self._diagnostic = None     # (apply, qd_coll, mult), built at first use
 
@@ -309,9 +309,28 @@ class ElasticityProblem:
             s0.conn, s0.num_nodes, self._level_mask(s0).cpu().numpy(),
             device=self.device)
         self._amg = AMGPreconditioner(self.dtype, self.device, top_mf=True)
-        # seconds of the AMG refreshes in the last solve (inside pc_time)
-        self.amg_times = dict.fromkeys(("elem_mats", "d2h", "setup",
-                                        "upload"), 0.0)
+
+    @property
+    def amg_times(self) -> dict | None:
+        """Seconds of the AMG refreshes in the last request (a solve, or a
+        linear solve run alone; inside pc_time), by part: the element
+        matrices, the copy to the host, the setup (the host CSR and the
+        native setup) and the upload, from its pc/amg/* spans; None
+        without the AMG."""
+        if not self._use_amg:
+            return None
+        sec = self._last_totals.seconds if self._last_totals else {}
+        part = {k: sec.get(f"pc/amg/{k}", 0.0)
+                for k in ("elem_mats", "d2h", "csr", "native", "upload")}
+        return {"elem_mats": part["elem_mats"], "d2h": part["d2h"],
+                "setup": part["csr"] + part["native"],
+                "upload": part["upload"]}
+
+    @property
+    def pc_setups(self) -> int:
+        """Preconditioner builds in the last request (counter pc.builds)."""
+        return (self._last_totals.counts.get("pc.builds", 0)
+                if self._last_totals else 0)
 
     # ------------------------------------------------------------------
     def bc_values(self, load_increment: float) -> torch.Tensor:
@@ -362,8 +381,9 @@ class ElasticityProblem:
     def _nonlinear_residual(self, u, bc_vals, F):
         """G(u) = R(u with BCs inserted) - F, zeroed at constrained DOFs
         (FormResidual_Ceed, matops.c:63-79). Returns (G, stash)."""
-        r, stash = self._raw_residual(self.insert_bc(u, bc_vals))
-        return torch.where(self.bc_mask, 0.0, r - F), stash
+        with span("newton/residual"):
+            r, stash = self._raw_residual(self.insert_bc(u, bc_vals))
+            return torch.where(self.bc_mask, 0.0, r - F), stash
 
     def _jacobian_action(self, v, stash):
         """Zero-BC linearized action (ApplyJacobian_Ceed, matops.c:98-112)."""
@@ -397,7 +417,8 @@ class ElasticityProblem:
                     return torch.where(lm, 0.0, jv)
             pro, res = self._transfers[l] or (None, None)
             levels.append(MGLevel(apply=apply, mask=lm, prolong=pro,
-                                  restrict=res))
+                                  restrict=res,
+                                  degree=self.level_degrees[l]))
         return levels, stash_nats
 
     def level_diag(self, l: int, stash, stash_nats) -> torch.Tensor:
@@ -417,12 +438,15 @@ class ElasticityProblem:
         Jacobian refresh, never inside CG."""
         diag_invs, bounds = [], []
         for l, lvl in enumerate(levels):
-            d = torch.where(lvl.mask, 1.0, self.level_diag(l, stash, stash_nats))
-            dinv = 1.0 / d
+            with span(f"pc/mg/p{lvl.degree}/diag"):
+                d = torch.where(lvl.mask, 1.0,
+                                self.level_diag(l, stash, stash_nats))
+                dinv = 1.0 / d
             diag_invs.append(dinv)
-            bounds.append(estimate_extreme_eigs(
-                lambda v, lvl=lvl: lvl.apply(v, stash), dinv, d.shape,
-                d.dtype))
+            with span(f"pc/mg/p{lvl.degree}/eig"):
+                bounds.append(estimate_extreme_eigs(
+                    lambda v, lvl=lvl: lvl.apply(v, stash), dinv, d.shape,
+                    d.dtype))
         return diag_invs, bounds
 
     def _amg_apply(self, b, data, top_mv):
@@ -450,19 +474,15 @@ class ElasticityProblem:
         """FormJacobian analog (misc.c:151-183): the p = 1 values on the
         device (p1_values), the (nnz,) float64 vector to the host, the
         native AMG setup (values only after the first), the levels back to
-        the device. Accumulates the four parts' seconds in amg_times."""
-        t0 = time.perf_counter()
-        vals = self.p1_values(stash, stash_nats)
-        sync(self.device)
-        t1 = time.perf_counter()
-        host = vals.cpu().numpy()
-        t2 = time.perf_counter()
-        self._amg.setup(self._assembler0.from_values(host))
-        t3 = time.perf_counter()
-        up = self._amg.last_times["upload"]
-        for k, t in (("elem_mats", t1 - t0), ("d2h", t2 - t1),
-                     ("setup", t3 - t2 - up), ("upload", up)):
-            self.amg_times[k] += t
+        the device, each in a pc/amg/* span (amg_times)."""
+        with span("pc/amg/elem_mats"):
+            vals = self.p1_values(stash, stash_nats)
+            sync(self.device)
+        with span("pc/amg/d2h"):
+            host = vals.cpu().numpy()
+        with span("pc/amg/csr"):
+            A = self._assembler0.from_values(host)
+        self._amg.setup(A)
 
     def linear_solve_mg(self, G, stash, levels, pc, rtol):
         """p-MG-preconditioned CG for J d = -G; pc = (diag_invs, bounds).
@@ -503,23 +523,29 @@ class ElasticityProblem:
         cadence), and built once a solve for a linear model, whose Jacobian
         never changes (the JAX package's cache, problem.py:404-406,
         610-611)."""
+        with request("linear_solve") as req:
+            x, its = self._linear_solve_impl(G, stash, refresh, rtol)
+        self._last_totals = req.totals
+        return x, its
+
+    def _linear_solve_impl(self, G, stash, refresh, rtol):
         cfg = self.config
         rtol = cfg.ksp_rtol if rtol is None else rtol
-        t0 = time.perf_counter()
-        levels = stash_nats = None
-        if self._use_mg:
-            levels, stash_nats = self.build_mg_levels(stash)
-        if self._pc_cache is None or (refresh and self.model.nonlinear):
-            self.pc_setups += 1
-            if self._use_amg:
-                self.refresh_amg(stash, stash_nats)
+        with span("pc"):
+            levels = stash_nats = None
             if self._use_mg:
-                self._pc_cache = self.mg_setup(stash, levels, stash_nats)
-            else:       # Jacobi; PCGAMG needs only the AMG data
-                self._pc_cache = (() if self._use_amg
-                                  else self._jacobi_setup(stash))
-        sync(self.device)
-        self._pc_time += time.perf_counter() - t0
+                with span("pc/mg/levels"):
+                    levels, stash_nats = self.build_mg_levels(stash)
+            if self._pc_cache is None or (refresh and self.model.nonlinear):
+                count("pc.builds")
+                if self._use_amg:
+                    self.refresh_amg(stash, stash_nats)
+                if self._use_mg:
+                    self._pc_cache = self.mg_setup(stash, levels, stash_nats)
+                else:       # Jacobi; PCGAMG needs only the AMG data
+                    self._pc_cache = (() if self._use_amg
+                                      else self._jacobi_setup(stash))
+            sync(self.device)
         if self._use_mg:
             return self.linear_solve_mg(G, stash, levels, self._pc_cache, rtol)
         if self._use_amg:
@@ -563,21 +589,33 @@ class ElasticityProblem:
             u = torch.zeros((3, N), dtype=self.dtype, device=self.device)
         else:
             u = torch.as_tensor(u0).to(device=self.device, dtype=self.dtype)
+        self._pc_cache = None
+        self.cg_exits = {}
+        with request("solve") as req:
+            u, load_done, info = self._continuation(monitor, u, start_load,
+                                                    floor_atol0)
+            sync(self.device)
+        self._last_totals = req.totals
+        info.solve_time = req.seconds
+        info.pc_time = req.totals.seconds.get("pc", 0.0)
+        with span("newton/bc"):
+            info.u = self.insert_bc(u, self.bc_values(max(load_done, 1e-30)))
+        return info
+
+    def _continuation(self, monitor, u, start_load, floor_atol0):
+        """The load increments' Newton solves from u: (u, the load reached,
+        a SolveInfo without u and times)."""
+        cfg = self.config
+        N = self.fine_space.num_nodes
         total_snes = total_ksp = 0
         rnorm = 0.0
-        self._pc_time = 0.0
-        self._pc_cache = None
-        self.pc_setups = 0
-        self.cg_exits = {}
-        if self._use_amg:
-            self.amg_times = dict.fromkeys(self.amg_times, 0.0)
-        t0 = time.perf_counter()
         last = None
         load_done = float(start_load)
         floor_atol = float(floor_atol0)
 
         def run_newton(load, u0):
-            bc_vals = self.bc_values(load)
+            with span("newton/bc"):
+                bc_vals = self.bc_values(load)
             F = self.F * load
             nstep = [0]
 
@@ -632,19 +670,15 @@ class ElasticityProblem:
                         break
             if load_done < target - 1e-12:
                 break  # elasticity.c:668-672 (after sub-step retries)
-        sync(self.device)
-        solve_time = time.perf_counter() - t0
-        u_out = self.insert_bc(u, self.bc_values(max(load_done, 1e-30)))
-        return SolveInfo(
-            u=u_out,
+        return u, load_done, SolveInfo(
+            u=None,
             snes_iters=total_snes,
             ksp_iters=total_ksp,
             rnorm=rnorm,
             converged=bool(last.converged) if last else True,
             reason=last.reason if last else "",
-            solve_time=solve_time,
+            solve_time=0.0,
             dofs=3 * N,
-            pc_time=self._pc_time,
         )
 
     # ------------------------------------------------------------------
@@ -687,10 +721,12 @@ class SolveInfo:
     rnorm: float
     converged: bool
     reason: str
+    # the request's span (utils/timing.request "solve"): the load
+    # increments' Newton solves to the device's sync, no BC insertion
     solve_time: float
     dofs: int
     # preconditioner setups (diagonals, Chebyshev bounds, native stashes,
-    # AMG refreshes), inside solve_time
+    # AMG refreshes), inside solve_time: the request's "pc" spans
     pc_time: float = 0.0
 
     @property

@@ -24,12 +24,13 @@ solved by its dense pseudo-inverse.
 from __future__ import annotations
 
 import ctypes
-import time
 import weakref
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from ..utils.timing import span
 
 
 def _ell_map(n, rowptr):
@@ -72,9 +73,6 @@ class AMGPreconditioner:
         self._struct = None       # host-side frozen structure + ELL maps
         self._free = None
         self.data = None
-        # seconds of the last setup: the native call, and the extraction
-        # and upload of the levels (host -> device, synchronised)
-        self.last_times = {"setup": 0.0, "upload": 0.0}
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a),
@@ -83,42 +81,54 @@ class AMGPreconditioner:
     # -- host-side setup / refresh -----------------------------------------
     def setup(self, A: sp.csr_matrix):
         """Build the hierarchy of A, or refresh its values when A has the
-        pattern of the last setup."""
+        pattern of the last setup (`build`), and bring its levels to the
+        device (`upload`)."""
+        self.build(A)
+        self.upload()
+
+    def build(self, A: sp.csr_matrix):
+        """The native setup of A's hierarchy, or of its values only when A
+        has the pattern of the last build (span pc/amg/native)."""
         from ..native import lib
 
-        L = lib()
-        t0 = time.perf_counter()
-        A = A.tocsr()
-        A.sort_indices()
-        n = A.shape[0]
-        rowptr = A.indptr.astype(np.int64)
-        colind = A.indices.astype(np.int32)
-        vals = A.data.astype(np.float64)
-        if self.handle is not None and not (
-                np.array_equal(self._pattern[0], rowptr)
-                and np.array_equal(self._pattern[1], colind)):
-            # pattern changed (CSRAssembler never does this): rebuild from
-            # scratch rather than refresh a hierarchy of another pattern
-            self._free()
-            self.handle = self._struct = self._free = None
-        if self.handle is None:
-            self.handle = ctypes.c_void_p(L.amg_setup(
-                n, np.int64(vals.size), rowptr, colind, vals,
-                float(self.theta), int(self.max_levels),
-                int(self.coarse_size)))
-            self._free = weakref.finalize(self, L.amg_free, self.handle)
-            self._pattern = (rowptr, colind)
-        else:
-            L.amg_refresh(self.handle, vals)
-        t1 = time.perf_counter()
-        if self._struct is not None:
-            self._extract_values(L)
-        else:
-            self._extract(L)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.last_times = {"setup": t1 - t0,
-                           "upload": time.perf_counter() - t1}
+        with span("pc/amg/native"):
+            L = lib()
+            A = A.tocsr()
+            A.sort_indices()
+            n = A.shape[0]
+            rowptr = A.indptr.astype(np.int64)
+            colind = A.indices.astype(np.int32)
+            vals = A.data.astype(np.float64)
+            if self.handle is not None and not (
+                    np.array_equal(self._pattern[0], rowptr)
+                    and np.array_equal(self._pattern[1], colind)):
+                # pattern changed (CSRAssembler never does this): rebuild
+                # from scratch rather than refresh a hierarchy of another
+                # pattern
+                self._free()
+                self.handle = self._struct = self._free = None
+            if self.handle is None:
+                self.handle = ctypes.c_void_p(L.amg_setup(
+                    n, np.int64(vals.size), rowptr, colind, vals,
+                    float(self.theta), int(self.max_levels),
+                    int(self.coarse_size)))
+                self._free = weakref.finalize(self, L.amg_free, self.handle)
+                self._pattern = (rowptr, colind)
+            else:
+                L.amg_refresh(self.handle, vals)
+
+    def upload(self):
+        """The levels' extraction from the native hierarchy and their
+        upload, synchronised (span pc/amg/upload)."""
+        from ..native import lib
+
+        with span("pc/amg/upload"):
+            if self._struct is not None:
+                self._extract_values(lib())
+            else:
+                self._extract(lib())
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def _level_rep(self, l: int, nlev: int, n: int) -> str:
         """'none' (coarsest: coarse_inv), 'mf' (level 0 through the

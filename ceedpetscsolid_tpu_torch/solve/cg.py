@@ -7,6 +7,8 @@ elasticity.c:504-507): convergence is monitored in the natural norm
 sqrt(r . M^{-1} r). The loop runs eagerly on the host; each iteration
 reads two float64 scalars back (one device sync) to test convergence, where
 the JAX version kept the whole loop on the device in a lax.while_loop.
+`pcg` is the span "cg", each iteration "cg/iter" and its read "cg/wait",
+with the counters cg.iterations and cg.reads (utils/timing).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..utils.precise import dot2
+from ..utils.timing import count, span
 
 
 class CGResult(NamedTuple):
@@ -51,6 +54,13 @@ def pcg(
     dot: the inner product, a 0-dim float64 tensor (the distributed driver
     passes its all-reduced dot).
     """
+    with span("cg"):
+        return _pcg(A, b, M_inv, x0, rtol, atol, maxiter, stall_its, monitor,
+                    dot)
+
+
+def _pcg(A, b, M_inv, x0, rtol, atol, maxiter, stall_its, monitor,
+         dot) -> CGResult:
     if M_inv is None:
         M_inv = lambda r: r  # noqa: E731
     if x0 is None:
@@ -67,31 +77,37 @@ def pcg(
     p = z
     it, ok, anchor, since = 0, True, norm0, 0
     rn = norm0
+    # one span object each, entered again every iteration
+    iter_span, wait_span = span("cg/iter"), span("cg/wait")
     while ok and rn > tol and it < maxiter and since < stall_its:
-        Ap = A(p)
-        pAp = dot(p, Ap)
-        good_t = pAp > 0
-        alpha = torch.where(good_t, rz / pAp, torch.zeros_like(pAp))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = M_inv(r)
-        rz_new = dot(r, z)
-        beta = rz_new / rz
-        p = z + beta * p
-        pAp_v, rz_v = torch.stack([pAp, rz_new]).tolist()   # the one sync
-        rn = math.sqrt(abs(rz_v))
-        if monitor:
-            # -ksp_monitor analog (natural norm, like KSP_NORM_NATURAL)
-            print(f"  {it + 1} KSP Residual norm {rn}")
-        # windowed stagnation: the norm must drop 5% below the anchor
-        # within stall_its iterations or the solve is abandoned
-        if rn < 0.95 * anchor:
-            anchor, since = rn, 0
-        else:
-            since += 1
-        rz = rz_new
-        it += 1
-        ok = pAp_v > 0
+        with iter_span:
+            Ap = A(p)
+            pAp = dot(p, Ap)
+            good_t = pAp > 0
+            alpha = torch.where(good_t, rz / pAp, torch.zeros_like(pAp))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = M_inv(r)
+            rz_new = dot(r, z)
+            beta = rz_new / rz
+            p = z + beta * p
+            with wait_span:                                 # the one sync
+                pAp_v, rz_v = torch.stack([pAp, rz_new]).tolist()
+            rn = math.sqrt(abs(rz_v))
+            if monitor:
+                # -ksp_monitor analog (natural norm, like KSP_NORM_NATURAL)
+                print(f"  {it + 1} KSP Residual norm {rn}")
+            # windowed stagnation: the norm must drop 5% below the anchor
+            # within stall_its iterations or the solve is abandoned
+            if rn < 0.95 * anchor:
+                anchor, since = rn, 0
+            else:
+                since += 1
+            rz = rz_new
+            it += 1
+            ok = pAp_v > 0
+    count("cg.iterations", it)
+    count("cg.reads", it + 1)
     # The JAX version's first-iteration fallback to M^{-1} b tests
     # `(it == 0) & ~ok`, which never holds (`it` counts the bailed
     # iteration), so a first-iteration bail returns x = 0 there; the port

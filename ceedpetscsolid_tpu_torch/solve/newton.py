@@ -6,7 +6,9 @@ with the CP line search (secant steps on g(lambda) = F(x + lambda d) . d,
 one by default as in SNESLINESEARCHCP) or the basic full step, both with
 domain-error backtracking, driven by the load-increment continuation loop
 of problem.py. The outer loop runs on the host; residuals, linear solves
-and reductions run on the problem's device.
+and reductions run on the problem's device. Each iteration is the span
+"newton/step", its line search with the domain backtracking
+"newton/line_search" (utils/timing).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..utils.precise import norm2, dot2
+from ..utils.timing import span
 
 
 @dataclass
@@ -211,14 +214,17 @@ def newton_solve(
     policy = NewtonPolicy(opts, rnorm0, floor_atol=floor_atol)
     ew_eta = opts.ew_eta0
     for it in range(1, opts.max_it + 1):
-        if opts.ew:
-            d, ksp_its = linear_solve(u, G, stash, ew_eta)
-        else:
-            d, ksp_its = linear_solve(u, G, stash)
-        lin_total += int(ksp_its)
-        lam = (secant_step(residual, u, G, d) if fused
-               else secant_search(residual, u, G, d, opts))
-        u, G, stash, rnorm_new, step, unorm = _backtrack(residual, u, d, lam)
+        with span("newton/step"):
+            if opts.ew:
+                d, ksp_its = linear_solve(u, G, stash, ew_eta)
+            else:
+                d, ksp_its = linear_solve(u, G, stash)
+            lin_total += int(ksp_its)
+            with span("newton/line_search"):
+                lam = (secant_step(residual, u, G, d) if fused
+                       else secant_search(residual, u, G, d, opts))
+                u, G, stash, rnorm_new, step, unorm = _backtrack(residual, u,
+                                                                 d, lam)
         if opts.monitor is not None:
             opts.monitor(it, rnorm_new)
         if opts.ew and math.isfinite(rnorm_new) and rnorm > 0:

@@ -9,7 +9,12 @@ solve. Everything is a fixed linear operation in the input, so the cycle is
 a valid stationary preconditioner for the outer CG.
 
 The coarse solve is a coarse_apply callable when one is given (the AMG
-V-cycle, not ported yet), else a heavy Chebyshev polynomial at p = 1.
+V-cycle of solve/amg.py, which problem.linear_solve_mg passes), else a
+heavy Chebyshev polynomial at p = 1.
+
+Under the profiler each level's smoothing, restriction and prolongation
+and the coarse solve are spans (utils/timing.fine):
+vcycle/p<degree>/{smooth,restrict,prolong} and vcycle/coarse.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.timing import fine
 from .cg import chebyshev
 
 
@@ -30,6 +36,7 @@ class MGLevel:
     mask: torch.Tensor          # (3, nnodes_l) bool, constrained
     prolong: Callable | None    # from level l-1 (None at the coarsest)
     restrict: Callable | None   # to level l-1
+    degree: int | None = None   # the level's polynomial degree (span names)
 
 
 def make_vcycle(
@@ -47,6 +54,9 @@ def make_vcycle(
     means a heavy Chebyshev polynomial at p = 1.
     """
     nlev = len(levels)
+    names = [{part: f"vcycle/p{lvl.degree if lvl.degree is not None else l}"
+              f"/{part}" for part in ("smooth", "restrict", "prolong")}
+             for l, lvl in enumerate(levels)]
 
     def vcycle(b, stash, diag_invs, bounds, coarse_data=None):
         bs = [None] * nlev
@@ -57,25 +67,30 @@ def make_vcycle(
             lvl = levels[l]
             A = lambda v, l=l: levels[l].apply(v, stash)  # noqa: E731
             lo, hi = bounds[l]
-            xs[l] = chebyshev(A, bs[l], diag_invs[l], lo, hi, smooth_its)
-            bc = lvl.restrict(bs[l] - A(xs[l]))
-            bs[l - 1] = torch.where(levels[l - 1].mask, 0.0, bc)
+            with fine(names[l]["smooth"]):
+                xs[l] = chebyshev(A, bs[l], diag_invs[l], lo, hi, smooth_its)
+            with fine(names[l]["restrict"]):
+                bc = lvl.restrict(bs[l] - A(xs[l]))
+                bs[l - 1] = torch.where(levels[l - 1].mask, 0.0, bc)
         # coarse solve (elasticity.c:568-585)
-        if coarse_apply is not None:
-            xs[0] = torch.where(levels[0].mask, 0.0,
-                                coarse_apply(bs[0], coarse_data))
-        else:
-            lo0, hi0 = bounds[0]
-            xs[0] = chebyshev(lambda v: levels[0].apply(v, stash), bs[0],
-                              diag_invs[0], lo0, hi0, coarse_cheb_its)
+        with fine("vcycle/coarse"):
+            if coarse_apply is not None:
+                xs[0] = torch.where(levels[0].mask, 0.0,
+                                    coarse_apply(bs[0], coarse_data))
+            else:
+                lo0, hi0 = bounds[0]
+                xs[0] = chebyshev(lambda v: levels[0].apply(v, stash), bs[0],
+                                  diag_invs[0], lo0, hi0, coarse_cheb_its)
         # upward: prolong + post-smooth
         for l in range(1, nlev):
             lvl = levels[l]
-            x = xs[l] + torch.where(lvl.mask, 0.0, lvl.prolong(xs[l - 1]))
+            with fine(names[l]["prolong"]):
+                x = xs[l] + torch.where(lvl.mask, 0.0, lvl.prolong(xs[l - 1]))
             A = lambda v, l=l: levels[l].apply(v, stash)  # noqa: E731
             lo, hi = bounds[l]
-            xs[l] = chebyshev(A, bs[l], diag_invs[l], lo, hi, smooth_its,
-                              x0=x)
+            with fine(names[l]["smooth"]):
+                xs[l] = chebyshev(A, bs[l], diag_invs[l], lo, hi, smooth_its,
+                                  x0=x)
         return xs[-1]
 
     return vcycle

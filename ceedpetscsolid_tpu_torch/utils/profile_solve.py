@@ -12,13 +12,16 @@ logarithmic levels, native level quadrature and the Chebyshev coarse solve
 (--coarse chebyshev, the default), the AMG coarse solve (--coarse amg; its
 refresh split is printed too), or both. For each preconditioner it runs
 one solve to warm up (kernel build,
-allocator), one solve without the profiler (the wall clock the busy share
-is taken against) and one under torch.profiler. It prints, per solve: the
-device kernels launched, their summed device time, the busy share (device
-time over the unprofiled solve wall), the fused element apply's launches
-and device ms per mode (residual, J.v), and the kernels with the most
-launches and the most device time. With --out it also writes the
-profiler's own table per preconditioner. Needs a CUDA device.
+allocator), one solve without the profiler and one under torch.profiler.
+It prints, per solve: the device kernels launched, their summed device
+time, the fused element apply's launches and device ms per mode (residual,
+J.v), and the kernels with the most launches and the most device time.
+With --out it also writes the profiler's own table per preconditioner.
+Needs a CUDA device.
+
+`step_split` reduces one profiled step: device time by kernel family and
+by program span (utils/timing: the kernels launched inside each span, the
+device's idle time under each).
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import math
 import re
 import sys
 import time
@@ -35,6 +37,7 @@ from pathlib import Path
 import torch
 
 from ..problem import Config, ElasticityProblem, select_device
+from .timing import RECORDER
 
 TOP = 8
 # a fused-apply kernel's name: cps::<body>_kernel<physics, jacobian, P, Q, T>,
@@ -42,9 +45,11 @@ TOP = 8
 # or cps::generic_reg_kernel<physics, jacobian, T, body>
 FUSED = re.compile(
     r"cps::\w+_kernel<\d+, (true|false), (?:(\d+), (\d+), )?\w+(?:, \d+)?>")
-# the profiler label of the distributed V-cycle's replicated AMG coarse
-# solve (parallel/driver.py)
+# the span of the distributed V-cycle's replicated AMG coarse solve
+# (parallel/driver.py)
 AMG_SCOPE = "amg coarse apply"
+# step_split's label of idle time that no program span covers
+NO_SPAN = "(no span)"
 
 
 def make_problem(box: int, multigrid: str, device, dtype=torch.float32,
@@ -109,41 +114,93 @@ HOST_CALLS = {"sync": ("Synchronize",), "launch": ("LaunchKernel",),
 COLLECTIVES = "c10d::"
 
 
-def step_split(prof, wall_s: float, step_s: float) -> dict:
-    """Device time of one profiled step by family (kernel_family; "other"
-    less the kernels launched under AMG_SCOPE, which go to "amg coarse
-    apply"): {family: {"launches", "ms"}}, the summed device ms, the busy
-    ms (the union of the device intervals: NCCL runs beside the compute
-    stream), the kernel launches, the profiled step's wall ms and the busy
-    share of `step_s`, the unprofiled step's wall; "host": {kind: {"calls",
-    "ms"}} of the CUDA runtime calls by HOST_CALLS and of the outermost
-    torch.distributed calls ("collectives")."""
+def _innermost(event, spans):
+    """The name of the innermost program span around a host event, or
+    NO_SPAN."""
+    while event is not None:
+        if event.name in spans:
+            return event.name
+        event = event.cpu_parent
+    return NO_SPAN
+
+
+def _idle_by_span(host, busy, t0: float, t1: float) -> dict:
+    """{span: us} of the gaps of [t0, t1] that the sorted, merged device
+    intervals `busy` leave, each by the innermost of the sorted (start,
+    end, name) program spans `host` that covers its middle."""
+    gaps, at = [], t0
+    for a, b in busy:
+        if a > at:
+            gaps.append((at, a))
+        at = max(at, b)
+    if at < t1:
+        gaps.append((at, t1))
+    out = collections.defaultdict(float)
+    stack, i = [], 0
+    for a, b in gaps:
+        t = 0.5 * (a + b)
+        while i < len(host) and host[i][0] <= t:
+            while stack and stack[-1][1] < host[i][0]:
+                stack.pop()
+            stack.append(host[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        out[stack[-1][2] if stack else NO_SPAN] += b - a
+    return out
+
+
+def step_split(prof, wall_s: float, step_s: float, spans=None) -> dict:
+    """Device time of one profiled step by family (kernel_family):
+    {family: {"launches", "ms"}}, and by program span ("spans": the
+    kernels launched inside each span's innermost, and "idle_ms", the
+    device's idle time under it, NO_SPAN where none covers it); the summed
+    device ms, the busy ms (the union of the device intervals: NCCL runs
+    beside the compute stream), the kernel launches, the profiled step's
+    wall ms and the busy share of `step_s`, the unprofiled step's wall;
+    "host": {kind: {"calls", "ms"}} of the CUDA runtime calls by
+    HOST_CALLS and of the outermost torch.distributed calls
+    ("collectives"). spans: the program span names (default: every one
+    this process entered under the profiler, utils/timing)."""
+    spans = RECORDER.profiled_names if spans is None else set(spans)
     cuda = torch.autograd.DeviceType.CUDA
-    evs = [e for e in prof.events() if e.device_type == cuda
-           and e.name != AMG_SCOPE
+    events = list(prof.events())
+    evs = [e for e in events if e.device_type == cuda
+           and e.name not in spans
            and not getattr(e, "is_user_annotation", False)]
     fam = collections.defaultdict(lambda: [0, 0.0])
-    spans = []
+    intervals = []
     for e in evs:
         row = fam[kernel_family(e.name)]
         row[0] += 1
         row[1] += e.time_range.elapsed_us() * 1e-3
-        spans.append((e.time_range.start, e.time_range.end))
-    amg = [k for e in prof.events() if e.device_type != cuda and e.kernels
-           and _in_scope(e, AMG_SCOPE) for k in e.kernels
-           if kernel_family(k.name) == "other"]
-    if amg:
-        ms = sum(k.duration for k in amg) * 1e-3
-        fam["amg coarse apply"] = [len(amg), ms]
-        fam["other"][0] -= len(amg)
-        fam["other"][1] -= ms
-    busy_us, end = 0.0, -math.inf
-    for a, b in sorted(spans):
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy_ms = busy_us * 1e-3
+        intervals.append((e.time_range.start, e.time_range.end))
+    by_span = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    host_spans = []
+    for e in events:
+        if e.device_type == cuda:
+            continue
+        if e.name in spans:
+            host_spans.append((e.time_range.start, e.time_range.end, e.name))
+        for k in e.kernels:
+            row = by_span[_innermost(e, spans)]
+            row[0] += 1
+            row[1] += k.duration * 1e-3
+    busy = []
+    for a, b in sorted(intervals):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    busy_ms = sum(b - a for a, b in busy) * 1e-3
+    stamps = [t for e in events for t in (e.time_range.start,
+                                          e.time_range.end)]
+    if stamps:
+        for name, us in _idle_by_span(sorted(host_spans), busy, min(stamps),
+                                      max(stamps)).items():
+            by_span[name][2] += us * 1e-3
     host = {k: [0, 0.0] for k in (*HOST_CALLS, "collectives")}
-    for e in prof.events():
+    for e in events:
         if e.device_type == cuda:
             continue
         kind = None
@@ -158,6 +215,8 @@ def step_split(prof, wall_s: float, step_s: float) -> dict:
             host[kind][1] += e.time_range.elapsed_us() * 1e-3
     return {"families": {k: {"launches": n, "ms": ms}
                          for k, (n, ms) in sorted(fam.items())},
+            "spans": {k: {"launches": n, "ms": ms, "idle_ms": idle}
+                      for k, (n, ms, idle) in sorted(by_span.items())},
             "host": {k: {"calls": n, "ms": ms} for k, (n, ms) in host.items()},
             "device_ms": sum(ms for _, ms in fam.values()),
             "busy_ms": busy_ms,
@@ -209,7 +268,7 @@ def profile(prob: ElasticityProblem) -> dict:
         "solve_s": wall, "pc_setup_s": info.pc_time,
         "profiled_solve_s": wall_prof,
         "kernel_launches": len(kernels), "copies": len(copies),
-        "device_ms": device_ms, "busy_share": device_ms * 1e-3 / wall,
+        "device_ms": device_ms,
         "launches_per_ksp": len(kernels) / max(info.ksp_iters, 1),
         "fused_apply": {k: {"launches": c, "device_ms": ms}
                         for k, (c, ms) in fused.items()},
@@ -261,7 +320,7 @@ def main(argv=None) -> int:
         print(f"    {r['kernel_launches']} kernel launches "
               f"({r['launches_per_ksp']:.1f} per CG iteration), "
               f"{r['copies']} copies/memsets, device time {r['device_ms']:.3f}"
-              f" ms, busy share {r['busy_share']:.4f}")
+              f" ms")
         print("    fused apply: " + ", ".join(
             f"{k} {v['launches']} launches {v['device_ms']:.3f} ms"
             for k, v in r["fused_apply"].items()))

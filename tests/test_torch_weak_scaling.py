@@ -252,11 +252,12 @@ def _event(name, t0, t1, cuda=True, kernels=(), parent=None):
 
 def test_step_split_on_synthetic_events():
     """The profile's families: the fused kernels by mode and (P, Q) (the
-    generic tile's by "(generic)"), NCCL, copies, the kernels launched
-    under the AMG coarse solve's label, the rest; the device annotation of
-    that label counts nothing; busy time is the union of the device
-    intervals (NCCL beside the compute stream); the host's runtime calls
-    by kind, and its outermost collectives."""
+    generic tile's by "(generic)"), NCCL, copies, the rest; by program
+    span, the kernels launched under the AMG coarse solve's span and the
+    device's idle time under it; the device annotation of that span counts
+    nothing; busy time is the union of the device intervals (NCCL beside
+    the compute stream); the host's runtime calls by kind, and its
+    outermost collectives."""
     scope = _event(AMG_SCOPE, 0, 400, cuda=False)
     a2a = _event("c10d::alltoall_base_", 70, 90, cuda=False)
     mm = _event("aten::mm", 255, 258, cuda=False, parent=scope,
@@ -271,13 +272,17 @@ def test_step_split_on_synthetic_events():
            _event("cudaStreamSynchronize", 10, 50, cuda=False),
            _event("cudaMemcpyAsync", 60, 63, cuda=False), a2a,
            _event("c10d::inner_", 72, 80, cuda=False, parent=a2a)]
-    sp = step_split(SimpleNamespace(events=lambda: evs), 0.002, 0.001)
+    sp = step_split(SimpleNamespace(events=lambda: evs), 0.002, 0.001,
+                    spans={AMG_SCOPE})
     fam = {k: (v["launches"], round(v["ms"], 6))
            for k, v in sp["families"].items()}
     assert fam == {"fused J.v (5,5)": (1, 0.1),
                    "fused residual (generic)": (1, 0.05), "NCCL": (1, 0.08),
-                   "copies": (1, 0.01), "amg coarse apply": (1, 0.03),
-                   "other": (1, 0.05)}
+                   "copies": (1, 0.01), "other": (2, 0.08)}
+    # the one gap, 290-400 us, lies inside the span (0-400 us)
+    assert {k: (v["launches"], round(v["ms"], 6), round(v["idle_ms"], 6))
+            for k, v in sp["spans"].items()} == {
+                AMG_SCOPE: (1, 0.03, 0.11)}
     assert sp["launches"] == 5
     assert sp["device_ms"] == pytest.approx(0.32)
     assert sp["busy_ms"] == pytest.approx(0.29)
