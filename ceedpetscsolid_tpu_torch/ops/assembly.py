@@ -8,8 +8,9 @@ pointwise Jacobian tensor K comes from 9 unit-gradient applications of the
 model's jacobian_qf (the operator diagonal's trick) and is contracted with
 the basis gradients into dense element matrices on the device. The slot
 reduction into the CSR value vector also runs on the device, in a fixed
-order; only the (nnz,) float64 values cross to the host, where the native
-AMG takes them.
+order. The (nnz,) float64 values cross to the host for the native AMG's
+first setup only (`from_values`); its later refreshes take them on the
+device (`masked`).
 
 BC handling: constrained rows and columns are eliminated and the diagonal
 set to 1 (the assembled analog of the solver-level masking).
@@ -104,6 +105,7 @@ class CSRAssembler:
         self._bc_diag = np.where((urows == ucols) & constrained[urows], 1.0,
                                  0.0)
         self._blocks = self._slot_blocks(device)
+        self._masks = None      # (keep, bc_diag) on the device, see masked
 
     def _slot_blocks(self, device):
         """[(slots (m,), entries (m, K))] with K the slot's entry count."""
@@ -131,6 +133,17 @@ class CSRAssembler:
         for slots, ent in self._blocks:
             out[slots] = flat[ent].sum(dim=1)
         return out
+
+    def masked(self, values: torch.Tensor) -> torch.Tensor:
+        """from_values' BC masks on values' device: `assemble_values` in
+        float64 -> the assembled matrix's (nnz,) values. The masks go to
+        the device at the first call."""
+        if self._masks is None:
+            self._masks = tuple(
+                torch.as_tensor(m, dtype=torch.float64, device=values.device)
+                for m in (self._keep, self._bc_diag))
+        keep, bc_diag = self._masks
+        return values * keep + bc_diag
 
     def from_values(self, data_host: np.ndarray) -> sp.csr_matrix:
         """Finish the assembly from `assemble_values` copied to the host."""

@@ -314,17 +314,18 @@ class ElasticityProblem:
     def amg_times(self) -> dict | None:
         """Seconds of the AMG refreshes in the last request (a solve, or a
         linear solve run alone; inside pc_time), by part: the element
-        matrices, the copy to the host, the setup (the host CSR and the
-        native setup) and the upload, from its pc/amg/* spans; None
-        without the AMG."""
+        matrices, the copy to the host, the setup (the host CSR, the native
+        setup and the device refresh's plans at the first build; the device
+        refresh's Galerkin products, lambdas and coarse inverse after it)
+        and the upload, from its pc/amg/* spans; None without the AMG."""
         if not self._use_amg:
             return None
         sec = self._last_totals.seconds if self._last_totals else {}
-        part = {k: sec.get(f"pc/amg/{k}", 0.0)
-                for k in ("elem_mats", "d2h", "csr", "native", "upload")}
-        return {"elem_mats": part["elem_mats"], "d2h": part["d2h"],
-                "setup": part["csr"] + part["native"],
-                "upload": part["upload"]}
+        setup = ("csr", "native", "plan", "galerkin", "lam", "coarse")
+        return {"elem_mats": sec.get("pc/amg/elem_mats", 0.0),
+                "d2h": sec.get("pc/amg/d2h", 0.0),
+                "setup": sum(sec.get(f"pc/amg/{k}", 0.0) for k in setup),
+                "upload": sec.get("pc/amg/upload", 0.0)}
 
     @property
     def pc_setups(self) -> int:
@@ -472,17 +473,22 @@ class ElasticityProblem:
 
     def refresh_amg(self, stash, stash_nats=None):
         """FormJacobian analog (misc.c:151-183): the p = 1 values on the
-        device (p1_values), the (nnz,) float64 vector to the host, the
-        native AMG setup (values only after the first), the levels back to
-        the device, each in a pc/amg/* span (amg_times)."""
+        device (p1_values), then the hierarchy's values refreshed from them
+        on the device (AMGPreconditioner.refresh), or, at the first build,
+        the (nnz,) float64 vector to the host, the native AMG setup and the
+        levels back to the device; each in a pc/amg/* span (amg_times)."""
         with span("pc/amg/elem_mats"):
             vals = self.p1_values(stash, stash_nats)
             sync(self.device)
+        asm = self._assembler0
+        if self._amg.refreshes_from(asm):
+            self._amg.refresh(vals)
+            return
         with span("pc/amg/d2h"):
             host = vals.cpu().numpy()
         with span("pc/amg/csr"):
-            A = self._assembler0.from_values(host)
-        self._amg.setup(A)
+            A = asm.from_values(host)
+        self._amg.setup(A, source=asm)
 
     def linear_solve_mg(self, G, stash, levels, pc, rtol):
         """p-MG-preconditioned CG for J d = -G; pc = (diag_invs, bounds).
@@ -647,8 +653,8 @@ class ElasticityProblem:
                 try:
                     res: NewtonResult = run_newton(load, u)
                 except FloatingPointError:
-                    # non-finite data reached the host-side AMG coarse
-                    # factorization: a diverged increment, as in the JAX
+                    # non-finite data reached the AMG's coarse
+                    # pseudo-inverse: a diverged increment, as in the JAX
                     # package
                     res = NewtonResult(u, 0, 0, float("nan"), False,
                                        "diverged (non-finite)")

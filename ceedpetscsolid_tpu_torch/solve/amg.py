@@ -10,8 +10,13 @@ there, a fixed linear operation in its input (a valid stationary
 preconditioner for the outer CG).
 
 After the first setup the hierarchy's structure is frozen: a refresh with a
-matrix of the same pattern recomputes values only (amg_refresh), and the
-index tensors on the device stay as they are.
+matrix of the same pattern recomputes values only, and the index tensors on
+the device stay as they are. Given the assembler its matrices come from
+(`setup(A, source)`), the first setup also plans the refresh on the device
+(solve/galerkin.py), and every later refresh (`refresh`) computes the
+levels' values, diagonals, lambda_max and coarse inverse there from the
+fine values, in float64: none go to the host. Without it (the distributed
+driver) a refresh is native (amg_refresh) and uploads the levels again.
 
 Level representations (`_level_rep`): level 0 is 'mf' when the hierarchy
 was built with top_mf=True (the caller's matrix-free p = 1 apply, which on
@@ -30,7 +35,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..utils.timing import span
+from ..utils.timing import count, span, sync
+from . import galerkin
 
 
 def _ell_map(n, rowptr):
@@ -73,18 +79,31 @@ class AMGPreconditioner:
         self._struct = None       # host-side frozen structure + ELL maps
         self._free = None
         self.data = None
+        self._plan = None         # the device refresh's plans, by level
+        self._source = None       # the assembler they take values from
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a),
                                dtype=dtype or self.dtype, device=self.device)
 
     # -- host-side setup / refresh -----------------------------------------
-    def setup(self, A: sp.csr_matrix):
+    def setup(self, A: sp.csr_matrix, source=None):
         """Build the hierarchy of A, or refresh its values when A has the
         pattern of the last setup (`build`), and bring its levels to the
-        device (`upload`)."""
+        device (`upload`). source: the CSRAssembler that A came from; given,
+        a new hierarchy also plans the device refresh of the values it
+        assembles (span pc/amg/plan; `refreshes_from`, `refresh`)."""
         self.build(A)
         self.upload()
+        if source is not None and self._plan is None:
+            with span("pc/amg/plan"):
+                self._plan = self._plan_refresh()
+            self._source = source
+
+    def refreshes_from(self, source) -> bool:
+        """Whether `refresh` takes source's values: the hierarchy exists
+        and was built on its pattern."""
+        return self._plan is not None and self._source is source
 
     def build(self, A: sp.csr_matrix):
         """The native setup of A's hierarchy, or of its values only when A
@@ -108,6 +127,7 @@ class AMGPreconditioner:
                 self._free()
                 self.handle = self._struct = self._free = None
             if self.handle is None:
+                self._plan = self._source = None
                 self.handle = ctypes.c_void_p(L.amg_setup(
                     n, np.int64(vals.size), rowptr, colind, vals,
                     float(self.theta), int(self.max_levels),
@@ -238,6 +258,143 @@ class AMGPreconditioner:
         self._coarse_n = self._struct[-1]["n"]
         self.data = {"levels": levels}
         self._extract_values(L)
+
+    def _plan_refresh(self) -> list[dict]:
+        """The device refresh's plans, from the frozen structure: for each
+        level its diagonal slots, the ELL map of its lambda_max estimate
+        (and of its values, where it is 'ell'), the dense scatter where it
+        is 'dense' or the coarsest, its power iteration's start vector, and
+        above the coarsest the Galerkin products A P and P^T (A P) with the
+        float64 values of P and P^T. Built with torch on the device."""
+        from ..native import lib
+
+        L, dev = lib(), self.device
+
+        def t(a, dtype=torch.int64):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=dev)
+
+        x0 = t(galerkin.lcg_start(self._struct[0]["n"]), torch.float64)
+        plan, patterns, nlev = [], [], len(self._struct)
+        for l, st in enumerate(self._struct):
+            n, rep, rowptr = st["n"], st["rep"], st["rowptr"]
+            rp, ci = t(rowptr), t(st["colind"][:rowptr[-1]])
+            patterns.append((rp, ci))
+            rows = galerkin.rows_of(rp)
+            on_diag = ci == rows
+            diag = torch.zeros(n, dtype=torch.int64, device=dev)
+            diag[rows[on_diag]] = torch.nonzero(on_diag).squeeze(1)
+            has_diag = torch.zeros(n, dtype=torch.bool, device=dev)
+            has_diag[rows[on_diag]] = True
+            lp = {"diag": diag, "has_diag": has_diag}
+            if rep in ("dense", "none"):
+                lp["flat"] = rows * n + ci
+            if rep != "none":
+                src, mask, _ = _ell_map(n, rowptr)
+                lp["ell_src"], lp["ell_mask"] = t(src, torch.int32), t(mask,
+                                                                       bool)
+                lp["ell_col"] = t(np.where(mask, st["colind"][src], 0),
+                                  torch.int32)
+                lp["x0"] = x0[:n]
+            plan.append(lp)
+        for l in range(nlev - 1):
+            lp, n = plan[l], self._struct[l]["n"]
+            nc = self._struct[l + 1]["n"]
+            dims = np.zeros(4, np.int64)
+            L.amg_level_dims(self.handle, l, dims)
+            pnnz = int(dims[2])
+            prow = np.zeros(n + 1, np.int64)
+            pcol = np.zeros(max(pnnz, 1), np.int32)
+            pval = np.zeros(max(pnnz, 1), np.float64)
+            L.amg_get_prolongator(self.handle, l, prow, pcol, pval)
+            p_rp, p_ci = t(prow), t(pcol[:pnnz])
+            pt_rp, pt_ci, perm = galerkin.transpose(p_rp, p_ci, nc)
+            lp["p"] = t(pval[:pnnz], torch.float64)
+            lp["pt"] = lp["p"][perm]
+            ap = lp["ap"] = galerkin.plan_product(*patterns[l], p_rp, p_ci,
+                                                  nc)
+            lp["ptap"] = galerkin.plan_product(pt_rp, pt_ci, ap.rowptr,
+                                               ap.colind, nc, b_pos=ap.pos)
+            rp, ci = patterns[l + 1]
+            if not (torch.equal(lp["ptap"].rowptr, rp)
+                    and torch.equal(lp["ptap"].colind, ci)):
+                raise RuntimeError(
+                    f"AMG level {l + 1}: the planned Galerkin pattern is not "
+                    "the native hierarchy's")
+        products = [lp[k] for lp in plan[:-1] for k in ("ap", "ptap")]
+        work = torch.empty((3, max((p.block_terms for p in products),
+                                   default=0)),
+                           dtype=torch.float64, device=dev)
+        for p in products:
+            p.bind(work)
+        return plan
+
+    def refresh(self, values: torch.Tensor) -> list[torch.Tensor]:
+        """The levels' values from the p = 1 values of the assembler the
+        hierarchy was built on ((nnz,) float64 before its BC masks, on the
+        device; `refreshes_from`), on the device, in float64 as
+        csrc/amg.cpp's amg_refresh computes them: the masks, each level's
+        Galerkin products in the native order (span pc/amg/galerkin, with
+        the ELL and dense values), the diagonals and lambda_max of D^-1 A
+        by the native power iteration (pc/amg/lam), and the coarse
+        pseudo-inverse of _coarse_inv (pc/amg/coarse), each cast to the
+        solve dtype at the end. The lambdas come to the host as floats
+        with the coarse matrix's finiteness check, which synchronises once
+        the values are done; the refresh ends synchronised. Counter
+        amg.device_refreshes. Returns the levels' float64 CSR values, fine
+        to coarse."""
+        count("amg.device_refreshes")
+        plan, dt = self._plan, self.dtype
+        reps = [st["rep"] for st in self._struct]
+        out = [{} for _ in plan]
+        with span("pc/amg/galerkin"):
+            vals = [self._source.masked(values)]
+            for lp in plan[:-1]:
+                ap = lp["ap"](vals[-1], lp["p"])
+                c = lp["ptap"](lp["pt"], ap)
+                vals.append(c.index_select(0, lp["ptap"].pos))
+            ells = []
+            for lp, v, rep, e in zip(plan, vals, reps, out):
+                ell = None
+                if rep != "none":
+                    ell = torch.where(lp["ell_mask"], v.index_select(
+                        0, lp["ell_src"].view(-1)).view(lp["ell_mask"].shape),
+                        0.0)
+                if rep == "ell":
+                    e["a_val"] = ell.to(dt)
+                elif rep == "dense":
+                    n = lp["diag"].numel()
+                    e["a_dense"] = v.new_zeros(n * n).index_copy_(
+                        0, lp["flat"], v).view(n, n).to(dt)
+                ells.append(ell)
+        with span("pc/amg/lam"):
+            lams = []
+            for lp, v, ell, e in zip(plan[:-1], vals, ells, out):
+                diag = torch.where(lp["has_diag"],
+                                   v.index_select(0, lp["diag"]), 0.0)
+                dinv = torch.where(diag != 0,
+                                   1.0 / torch.where(diag == 0, 1.0, diag),
+                                   1.0)
+                e["dinv"] = dinv.to(dt)
+                lams.append(galerkin.lambda_max(ell, lp["ell_col"], dinv,
+                                                lp["x0"]))
+        with span("pc/amg/coarse"):
+            nc = self._coarse_n
+            M = vals[-1].new_zeros(nc * nc).index_copy_(
+                0, plan[-1]["flat"], vals[-1]).view(nc, nc)
+            *lam, finite = torch.stack(
+                lams + [torch.isfinite(M).all().double()]).tolist()
+            if not finite:
+                raise FloatingPointError(
+                    "AMG coarse matrix has non-finite entries (check the "
+                    "element matrices / stash feeding CSRAssembler)")
+            coarse_inv = galerkin.sym_pinv(M).to(dt)
+            sync(self.device)
+        for e, lv, x in zip(out, self.data["levels"], lam):
+            e["lam"] = x
+            lv.update(e)
+        self.data["coarse_inv"] = coarse_inv
+        return vals
 
     def level_summary(self) -> list[tuple[int, str]]:
         """(n, representation) of each level, fine to coarse."""

@@ -26,6 +26,7 @@ from ceedpetscsolid_tpu_torch.ops.operator import OperatorFactory as TFactory
 from ceedpetscsolid_tpu_torch.problem import Config, ElasticityProblem
 from ceedpetscsolid_tpu_torch.solve.amg import AMGPreconditioner
 from ceedpetscsolid_tpu_torch.solve.cg import pcg
+from amg_refresh_pair import check_device_refresh
 from test_torch_mesh import mesh_pair
 
 JPHYS = JPhysics(nu=0.3, E=1.0)
@@ -182,8 +183,9 @@ def test_amg_reduces_cg_iterations():
 
 def test_amg_refresh_keeps_pattern_and_quality(monkeypatch):
     """hyperSS clamp solve, p-MG + AMG coarse: the hierarchy's structure is
-    extracted once and its values refreshed in place on every Newton step,
-    and CG stays multigrid-like (tests/test_amg.py's bound)."""
+    extracted once and its values refreshed in place on every Newton step
+    (natively at the first, on the device after it), and CG stays
+    multigrid-like (tests/test_amg.py's bound)."""
     calls = {"build": 0, "refresh": 0}
     build, refresh = AMGPreconditioner._extract, AMGPreconditioner._extract_values
 
@@ -203,10 +205,53 @@ def test_amg_refresh_keeps_pattern_and_quality(monkeypatch):
         device="cpu"))
     info = prob.solve()
     assert info.converged and info.snes_iters >= 2
-    # the first setup fills its values through the refresh path too
-    assert calls == {"build": 1, "refresh": prob.pc_setups}
+    # the first setup fills its values natively; every later refresh is
+    # the device's
+    assert calls == {"build": 1, "refresh": 1}
+    device = prob._last_totals.counts.get("amg.device_refreshes", 0)
+    assert device == prob.pc_setups - 1
     assert prob.pc_setups == info.snes_iters
     assert info.ksp_iters < 30 * info.snes_iters
+
+
+@pytest.mark.parametrize("name,n,amg_kw,reps", [
+    # -test: the whole boundary masked; level 0 matrix-free, as the
+    # problem builds it
+    ("hyperFS", 8, {"top_mf": True, "coarse_size": 10},
+     ["mf", "dense", "none"]),
+    ("hyperFS", 8, {"dense_n": 100, "coarse_size": 10},
+     ["ell", "dense", "none"]),
+    # composite: the pressure part's element matrices in the values
+    ("hyperFSIncomp", 6, {"top_mf": True, "dense_n": 0, "coarse_size": 10},
+     ["mf", "ell", "none"]),
+])
+def test_device_refresh_matches_native(name, n, amg_kw, reps):
+    """The device refresh of one hierarchy at two more Jacobians against
+    the native refresh on the same float64 values (amg_refresh_pair)."""
+    prob = ElasticityProblem(Config(
+        problem=name, degree=2, nu=0.3, E=1.0, test_mode=True,
+        box_faces=(n, n, n), multigrid="logarithmic", device="cpu"))
+    assert check_device_refresh(prob, (0, 1, 2), **amg_kw) == reps
+
+
+def test_device_refresh_raises_on_non_finite_values():
+    """Non-finite p = 1 values raise FloatingPointError from the device
+    refresh, as from the native one (the continuation's diverged
+    increment), and leave the levels' data as they were."""
+    prob = ElasticityProblem(Config(
+        problem="hyperFS", degree=2, nu=0.3, E=1.0, test_mode=True,
+        box_faces=(6, 6, 6), multigrid="logarithmic", device="cpu"))
+    asm = prob._assembler0
+    v = prob.p1_values(prob._raw_residual(
+        torch.zeros((3, prob.fine_space.num_nodes), dtype=torch.float64))[1])
+    amg = AMGPreconditioner(torch.float64, "cpu", top_mf=True, coarse_size=10)
+    amg.setup(asm.from_values(v.numpy()), source=asm)
+    coarse_inv = amg.data["coarse_inv"]
+    with pytest.raises(FloatingPointError):
+        amg.refresh(torch.full_like(v, float("nan")))
+    assert amg.data["coarse_inv"] is coarse_inv
+    with pytest.raises(FloatingPointError):
+        amg.setup(asm.from_values(np.full(v.numel(), np.nan)))
 
 
 def test_degree1_amg_pc():

@@ -12,6 +12,7 @@ tests/test_torch_*.py files, is the reference here. On the GPU machine:
 import numpy as np
 import pytest
 import torch
+from amg_refresh_pair import check_device_refresh
 
 from ceedpetscsolid_tpu_torch.mesh.box import box_mesh
 from ceedpetscsolid_tpu_torch.mesh.fespace import build_fespace
@@ -719,6 +720,26 @@ def test_pcgamg_degree1_on_gpu_matches_cpu(cuda):
         box_faces=(6, 6, 6))
     assert ig.ksp_iters <= 15
     assert counts[("linElas", "jacobian", 2, 2)] > ig.ksp_iters
+
+
+def test_amg_device_refresh_on_gpu_matches_native(cuda):
+    """A small hyperFS p-MG + AMG problem in float64 on the card: its solve
+    refreshes the AMG on the card at every Newton step after the first,
+    and the device refresh there matches the native refresh on the host on
+    the same values, to amg_refresh_pair's tolerances (level 0 matrix-free
+    and a dense level; an ELL level and a dense one)."""
+    prob = ElasticityProblem(Config(
+        problem="hyperFS", degree=2, nu=0.3, E=1.0, test_mode=True,
+        box_faces=(8, 8, 8), num_increments=1, device=cuda,
+        dtype=torch.float64))
+    info = prob.solve()
+    assert info.converged
+    device = prob._last_totals.counts.get("amg.device_refreshes", 0)
+    assert 0 < device == prob.pc_setups - 1
+    assert check_device_refresh(prob, (0, 1, 2), top_mf=True,
+                                coarse_size=10) == ["mf", "dense", "none"]
+    assert check_device_refresh(prob, (0, 1, 2), dense_n=100,
+                                coarse_size=10) == ["ell", "dense", "none"]
 
 
 @pytest.mark.parametrize("kind", ["box", "scrambled"])

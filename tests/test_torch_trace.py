@@ -21,12 +21,14 @@ from ceedpetscsolid_tpu_torch.problem import Config, ElasticityProblem
 from ceedpetscsolid_tpu_torch.utils import timing
 from ceedpetscsolid_tpu_torch.utils.profile_solve import step_split
 
-# the always-on spans of a p-MG + AMG solve, and the spans only under the
-# profiler
+# the always-on spans of a problem's first p-MG + AMG solve (its first
+# Newton step builds the AMG natively, the later ones refresh it on the
+# device), and the spans only under the profiler
 ALWAYS = {"solve", "newton/step", "newton/residual", "newton/line_search",
           "linear_solve", "pc", "pc/mg/levels", "pc/amg/elem_mats",
-          "pc/amg/d2h", "pc/amg/csr", "pc/amg/native", "pc/amg/upload", "cg",
-          "cg/iter", "cg/wait"}
+          "pc/amg/d2h", "pc/amg/csr", "pc/amg/native", "pc/amg/upload",
+          "pc/amg/plan", "pc/amg/galerkin", "pc/amg/lam", "pc/amg/coarse",
+          "cg", "cg/iter", "cg/wait"}
 FINE = {"vcycle/p2/smooth", "vcycle/p2/restrict", "vcycle/p2/prolong",
         "vcycle/coarse", "op/residual", "op/jv", "op/owner_sum"}
 
@@ -65,6 +67,7 @@ def test_solve_span_tree_and_views():
     assert counts["cg.iterations"] == info.ksp_iters
     assert counts["cg.reads"] == info.ksp_iters + rec["calls"]["cg"]
     assert counts["pc.builds"] == info.snes_iters == prob.pc_setups
+    assert counts["amg.device_refreshes"] == info.snes_iters - 1
     assert rec["calls"]["newton/step"] == info.snes_iters
     assert rec["calls"]["cg/iter"] == info.ksp_iters
     # children within their parents
@@ -81,7 +84,8 @@ def test_solve_span_tree_and_views():
     amg = prob.amg_times
     assert amg["elem_mats"] == sec["pc/amg/elem_mats"]
     assert amg["d2h"] == sec["pc/amg/d2h"]
-    assert amg["setup"] == sec["pc/amg/csr"] + sec["pc/amg/native"]
+    assert amg["setup"] == sum(sec[f"pc/amg/{k}"] for k in (
+        "csr", "native", "plan", "galerkin", "lam", "coarse"))
     assert amg["upload"] == sec["pc/amg/upload"]
     # the problem's -log_view report holds its stages and the spans
     report = prob.log.report()
@@ -111,26 +115,27 @@ def test_no_profiler_range_without_the_profiler(monkeypatch):
 
 
 def test_spans_on_the_profiler_timeline(monkeypatch):
-    """Under the CPU profiler every span, the profiled-only ones too, is a
-    host event inside its parent's; the owner-sum's ms are kept; and the
-    trace reduction of the benchmark names a host-only gap inside
-    pc/amg/native by that span."""
+    """Under the CPU profiler every span of a problem's first solve, the
+    profiled-only ones too, is a host event inside its parent's; the
+    owner-sum's ms are kept; and the trace reduction of the benchmark names
+    a host-only gap inside pc/amg/native (the AMG's first, native build) by
+    that span."""
+    _problem().solve()
     prob = _problem()
-    prob.solve()
     real = native.lib()
 
-    class SlowRefresh:
-        """The native library, its value refresh 50 ms slower on the host
-        (no torch operation)."""
+    class SlowSetup:
+        """The native library, its setup 50 ms slower on the host (no
+        torch operation)."""
 
         def __getattr__(self, name):
             return getattr(real, name)
 
-        def amg_refresh(self, *args):
+        def amg_setup(self, *args):
             time.sleep(0.05)
-            return real.amg_refresh(*args)
+            return real.amg_setup(*args)
 
-    monkeypatch.setattr(native, "lib", SlowRefresh)
+    monkeypatch.setattr(native, "lib", SlowSetup)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         prob.solve()
     rec = timing.records()[-1]
