@@ -53,14 +53,37 @@ def make_element_matrices(jacobian_qf, phys, basis, dtype):
                     row.append(jacobian_qf(du, qdata, st, phys))
             cols.append(torch.stack(row, dim=0))
         K = torch.stack(cols, dim=0)        # (c2, d2, c1, d1, e, q)
-        # tmp[c2, d2, c1, i, e, q] = sum_d1 grad[d1, q, i] K[...]
-        tmp = torch.einsum("aqi,cdxaeq->cdxieq", grad, K)
-        # A2[c2, c1, i, j, e] = sum_{q, d2} tmp * grad[d2, q, j]
-        A2 = torch.einsum("cdxieq,dqj->cxije", tmp, grad)
-        # element matrix (e, i, c1, j, c2) -> (e, 3 P3, 3 P3)
-        return A2.permute(4, 2, 1, 3, 0).reshape(nelem, 3 * P3, 3 * P3)
+        return element_matrices_of(K, grad)
 
     return fn
+
+
+def pointwise_tangent(jacobian_qf, phys, qdata, stash) -> torch.Tensor:
+    """K (c2, d2, c1, d1, e, q) = K[c1, d1, c2, d2] at each quadrature
+    point, as make_element_matrices stacks it from nine unit-gradient
+    applications of jacobian_qf, from one: the nine unit gradients on a
+    leading batch axis that qdata and the stash broadcast over (the
+    qfunction is pointwise, so each point's arithmetic is the same)."""
+    nelem, Q3 = qdata.shape[1], qdata.shape[2]
+    st = None if stash is None else Mat3(stash.unbind(0))
+    # du[c2', d2', k] = 1 where k = 3 c2' + d2'
+    unit = torch.eye(9, dtype=qdata.dtype, device=qdata.device)
+    du = unit.reshape(3, 3, 9, 1, 1).expand(3, 3, 9, nelem, Q3)
+    K = jacobian_qf(du, qdata, st, phys)        # (c1, d1, k, e, q)
+    return K.permute(2, 0, 1, 3, 4).reshape(3, 3, 3, 3, nelem, Q3)
+
+
+def element_matrices_of(K: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """(nelem, 3 P3, 3 P3) element matrices from the pointwise Jacobian
+    K (c2, d2, c1, d1, e, q) = K[c1, d1, c2, d2] and the basis gradient
+    grad (3, Q3, P3), in make_element_matrices' DOF order."""
+    nelem, P3 = K.shape[4], grad.shape[2]
+    # tmp[c2, d2, c1, i, e, q] = sum_d1 grad[d1, q, i] K[...]
+    tmp = torch.einsum("aqi,cdxaeq->cdxieq", grad, K)
+    # A2[c2, c1, i, j, e] = sum_{q, d2} tmp * grad[d2, q, j]
+    A2 = torch.einsum("cdxieq,dqj->cxije", tmp, grad)
+    # element matrix (e, i, c1, j, c2) -> (e, 3 P3, 3 P3)
+    return A2.permute(4, 2, 1, 3, 0).reshape(nelem, 3 * P3, 3 * P3)
 
 
 class CSRAssembler:

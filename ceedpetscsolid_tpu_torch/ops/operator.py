@@ -312,8 +312,7 @@ def element_diagonal(jacobian_qf: Callable, phys, basis: Basis3D) -> Callable:
     diag[c,e,p] = sum_q sum_{d1,d2} Bg[d1,q,p] K[c,d1,c,d2] Bg[d2,q,p]
     where K is the pointwise Jacobian tensor; K's (c, :, c, :) slices
     come from 9 unit-gradient applications of the qfunction."""
-    # BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]
-    BB = torch.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
+    BB = diagonal_weights(basis)
 
     def fn(qdata, stash):
         nelem, Q3 = qdata.shape[1], qdata.shape[2]
@@ -333,3 +332,21 @@ def element_diagonal(jacobian_qf: Callable, phys, basis: Basis3D) -> Callable:
         return diag_e
 
     return fn
+
+
+def diagonal_weights(basis: Basis3D) -> torch.Tensor:
+    """BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]."""
+    return torch.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
+
+
+def element_diagonal_of(K: torch.Tensor, BB: torch.Tensor) -> torch.Tensor:
+    """(3, nelem, P3) element diagonals from the pointwise Jacobian K
+    (c2, d2, c1, d1, e, q) (assembly.pointwise_tangent) and the basis's
+    diagonal_weights, summed as element_diagonal sums them."""
+    nelem, P3 = K.shape[4], BB.shape[1]
+    diag_e = torch.zeros((3, nelem, P3), dtype=K.dtype, device=K.device)
+    for c2 in range(3):
+        for d2 in range(3):
+            diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2],
+                                       K[c2, d2, c2])
+    return diag_e

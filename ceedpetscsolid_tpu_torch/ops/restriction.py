@@ -39,6 +39,8 @@ class Restriction:
         self.conn = torch.as_tensor(np.asarray(conn, np.int64), device=device)
         self._t_blocks = self._build_transpose_map(np.asarray(conn),
                                                    node_ranges, device)
+        # the appended zero column by (ncomp, dtype), made once
+        self._zero = {}
 
     def _build_transpose_map(self, conn: np.ndarray, node_ranges, device):
         flat = conn.reshape(-1).astype(np.int64)
@@ -67,8 +69,11 @@ class Restriction:
         """(ncomp, nelem, P3) -> (ncomp, num_nodes), summed over elements."""
         with fine("op/owner_sum", stream=ve.device):
             ncomp = ve.shape[0]
-            ext = torch.cat([ve.reshape(ncomp, -1),
-                             ve.new_zeros((ncomp, 1))], dim=1)
+            key = (ncomp, ve.dtype)
+            zero = self._zero.get(key)
+            if zero is None:
+                zero = self._zero[key] = ve.new_zeros((ncomp, 1))
+            ext = torch.cat([ve.reshape(ncomp, -1), zero], dim=1)
             parts = [ext.index_select(1, idx).reshape(ncomp, -1, K).sum(dim=2)
                      for K, idx in self._t_blocks]
             return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)

@@ -20,9 +20,22 @@ Preconditioner data (level diagonals, Chebyshev bounds) is built once per
 Jacobian refresh (`pc_setup`, the KSPChebyshevEstEig cadence) and the AMG
 coarse hierarchy by `refresh_amg`, whose p = 1 element matrices every rank
 computes on its device and all ranks gather, so each assembles the same
-matrix and runs the same native setup. Both record their stages in the
-problem's StageLog (`log`): they run outside a Newton step, so the
-synchronisation each stage ends with times nothing of the step.
+matrix: the first build runs the native setup on the host, and every
+later refresh computes the levels from those values on the device
+(solve/amg.py refresh, solve/galerkin.py), the same on every rank. Both
+record their stages in the problem's StageLog (`log`): they run outside a
+Newton step, so the synchronisation each stage ends with times nothing of
+the step.
+
+A solve is a request of utils/timing ("solve"), its layers under the
+serial path's span names (newton/step, newton/residual, newton/bc: once
+a load, the BC values are kept; pc, pc/mg/*, pc/amg/*, cg, cg/iter,
+cg/wait; under the profiler also op/residual, op/jv,
+vcycle/p<d>/smooth, /restrict, /prolong and vcycle/coarse) and the
+exchanges' (dist/<kind>/issue, dist/<kind>/wait; under NCCL the stream's
+wait for each kind is added to the record's device ms under
+dist/<kind>/wait), with the counters pc.builds, amg.device_refreshes,
+cg.iterations, dist.exchanges and dist.bytes.
 
 The JAX package's slab spectral path on boxes (parallel/slab.py,
 `SpectralLattice`) is a TPU layout and is not ported: `use_slab=True`
@@ -40,15 +53,16 @@ import numpy as np
 import torch
 
 from ..ops import fused_apply as fa
-from ..ops.assembly import CSRAssembler, make_element_matrices
-from ..ops.operator import element_diagonal
+from ..ops.assembly import (CSRAssembler, element_matrices_of,
+                            pointwise_tangent)
+from ..ops.operator import diagonal_weights, element_diagonal_of
 from ..solve.amg import AMGPreconditioner
 from ..solve.cg import pcg
 from ..solve.newton import NewtonOptions, NewtonPolicy
 from ..utils.profile_solve import AMG_SCOPE
-from ..utils.timing import StageLog, fine, span
+from ..utils.timing import StageLog, add_ms, count, fine, request, span
 from . import mg as dmg
-from .dist import Comm, ddot, dnorm
+from .dist import SPANS, Comm, ddot, dnorm
 from .partition import gather_owned_to_global, partition_space
 
 # domain-error halvings of the line-search step (the JAX step's bt_cond)
@@ -67,11 +81,14 @@ def _split(tensors, k: int):
 class _Stash:
     """The gradu stash of one residual over this rank's elements, in
     element order ((9, nelem, Q3) tensors; None for a linear model), and
-    its per-level batch splits, built once per Jacobian."""
+    its per-level batch splits, built once per Jacobian; `tangent`: the
+    pointwise Jacobians at it (DistributedProblem._tangent), while the
+    preconditioner is built from them."""
 
     mu: torch.Tensor | None
     p: torch.Tensor | None
     splits: dict = field(default_factory=dict)
+    tangent: tuple | None = None
 
     def split(self, k: int):
         """((mu, p) interior, (mu, p) boundary) at the interior count k."""
@@ -140,24 +157,22 @@ class DistributedProblem:
             prob, self.part, self.comm,
             levels=None if use_mg else [nlev - 1])
         self.partition_seconds.update(coarse_s)
-        # each level's element diagonals (the pressure part's too); its
-        # qdata split at its interior count is made at first use
-        self._diag_e = [
-            (element_diagonal(self.model.jacobian_qf, self.phys, lv.basis),
-             element_diagonal(self.model.pressure_jacobian_qf, self.phys,
-                              lv.pbasis) if self.composite else None)
+        # every level integrates at the fine quadrature, so one pointwise
+        # Jacobian a Newton step (`_tangent`) gives each level's element
+        # diagonals (these weights; the pressure part's too) and the
+        # p = 1 element matrices; a level's qdata split at its interior
+        # count is made at first use
+        self._diag_w = [
+            (diagonal_weights(lv.basis),
+             diagonal_weights(lv.pbasis) if self.composite else None)
             for lv in self.levels]
         self._qd = {}
         self._amg = None
-        if use_mg:
-            self._em_mu = make_element_matrices(
-                self.model.jacobian_qf, self.phys, self.levels[0].basis,
-                self.dtype)
-            self._em_p = (make_element_matrices(
-                self.model.pressure_jacobian_qf, self.phys,
-                self.levels[0].pbasis, self.dtype)
-                if self.composite else None)
         self._res_cache = None
+        # the owned BC values by load (`_bc_owned`), and the whole box's
+        # mask and values at the full load (`solve`'s answer)
+        self._bc = {}
+        self._bc_final = None
         # fused-apply calls made by this rank's batches, per mode: on a
         # CUDA rank each is one kernel launch (fused_apply.COUNTS), which
         # a caller can hold equal to show no batch ran the plain version
@@ -201,7 +216,14 @@ class DistributedProblem:
         return self.part.halo_stats()
 
     def _bc_owned(self, load: float) -> torch.Tensor:
-        return self.to_owned(self.problem.bc_values(load))
+        """The owned BC values at `load`, computed on the whole box once a
+        load (they depend on nothing else)."""
+        bc = self._bc.get(load)
+        if bc is None:
+            with span("newton/bc"):
+                bc = self._bc[load] = self.to_owned(
+                    self.problem.bc_values(load))
+        return bc
 
     # -- the distributed operators -------------------------------------------
     def _split_apply(self, lv, owned: torch.Tensor, batch):
@@ -245,7 +267,8 @@ class DistributedProblem:
                 ve = ve + vep
             return ve, (st, stp)
 
-        r, (ai, ab) = self._split_apply(lv, u_in, batch)
+        with fine("op/residual"):
+            r, (ai, ab) = self._split_apply(lv, u_in, batch)
         parts = [a for a in (ai, ab) if a is not None]
 
         def cat(i):
@@ -263,8 +286,9 @@ class DistributedProblem:
     def _residual(self, u, bc, F):
         """G(u) = R(u with BCs inserted) - F, zero at constrained DOFs, and
         the stash."""
-        r, stash = self._raw_residual(torch.where(self.mask, bc, u))
-        return torch.where(self.mask, 0.0, r - F), stash
+        with span("newton/residual"):
+            r, stash = self._raw_residual(torch.where(self.mask, bc, u))
+            return torch.where(self.mask, 0.0, r - F), stash
 
     def _entry_residual(self, u, load):
         """(G, stash, owned BC values) at (u, load), kept for the last
@@ -296,17 +320,34 @@ class DistributedProblem:
             return ve, None
 
         def A(v):
-            jv, _ = self._split_apply(lv, torch.where(lv.mask, 0.0, v), batch)
-            return torch.where(lv.mask, 0.0, jv)
+            with fine("op/jv"):
+                jv, _ = self._split_apply(lv, torch.where(lv.mask, 0.0, v),
+                                          batch)
+                return torch.where(lv.mask, 0.0, jv)
 
         return A
 
+    def _tangent(self, stash: _Stash) -> tuple:
+        """(K, K_p): the pointwise Jacobians at the stash (the pressure
+        part's None but for a composite model), made at the first use of
+        the stash by the preconditioner's set-up and kept on it
+        (ops/assembly.pointwise_tangent)."""
+        if stash.tangent is None:
+            with span("pc/tangent"):
+                stash.tangent = (
+                    pointwise_tangent(self.model.jacobian_qf, self.phys,
+                                      self.qdata, stash.mu),
+                    pointwise_tangent(self.model.pressure_jacobian_qf,
+                                      self.phys, self.qdata_p, stash.p)
+                    if self.composite else None)
+        return stash.tangent
+
     def _level_diag(self, l: int, stash: _Stash) -> torch.Tensor:
         lv = self.levels[l]
-        mu, p = self._diag_e[l]
-        d = mu(self.qdata, stash.mu)
+        (K, K_p), (w, w_p) = self._tangent(stash), self._diag_w[l]
+        d = element_diagonal_of(K, w)
         if self.composite:
-            d = d + p(self.qdata_p, stash.p)
+            d = d + element_diagonal_of(K_p, w_p)
         diag = lv.ra.l2g_add(lv.ra.scatter_elements(d))
         diag = torch.where(lv.mask, 1.0, diag)
         return torch.where(diag == 0.0, 1.0, diag)
@@ -320,62 +361,86 @@ class DistributedProblem:
         return G
 
     def refresh_amg(self, u_owned, load: float):
-        """FormJacobian analog (misc.c:151-183): each rank computes its
-        elements' p = 1 matrices from its stash on its device; every rank
-        gathers all of them, takes them in the global element order and
-        reduces them into the CSR values on its device as the serial
-        refresh_amg does; the float64 values come to the host, where every
-        rank runs the same native setup, so the coarse hierarchy is
-        replicated as in the JAX package. A NaN stash raises
-        FloatingPointError (the AMG's coarse matrix). Its stages go to
-        `log`: the residual and stash, element matrices, all_gather, CSR
-        pattern (the first call only), CSR reduce, d2h, native setup,
-        extract and upload."""
+        """FormJacobian analog (misc.c:151-183): the p = 1 values at (u,
+        load) on every rank (`p1_values`); at the first call they come to
+        the host, where every rank runs the same native setup and plans
+        the device refresh, so the coarse hierarchy is replicated as in
+        the JAX package; every later call refreshes the hierarchy's values
+        from them on the device (solve/amg.py refresh): nothing goes to
+        the host. A NaN stash raises FloatingPointError (the AMG's coarse
+        matrix). Its stages go to `log`: the residual and stash, element
+        matrices, all_gather, CSR pattern (the first call only), CSR
+        reduce, then d2h, native setup, extract and upload at the first
+        call, device refresh at every later one."""
         with self.log.stage("refresh_amg"):
             return self._refresh_amg(u_owned, load)
 
     def _refresh_amg(self, u_owned, load: float):
-        prob, stage = self.problem, self.log.stage
+        vals = self.p1_values(u_owned, load)
+        asm, amg = self._assembler0, self._amg
+        if amg.refreshes_from(asm):
+            with self.log.stage("refresh_amg: device refresh"):
+                amg.refresh(vals)
+            return amg.data
+        stage = self.log.stage
+        with stage("refresh_amg: d2h"), span("pc/amg/d2h"):
+            host = vals.cpu().numpy()
+        with span("refresh_amg: native setup", log=self.log):
+            with span("pc/amg/csr"):
+                A = asm.from_values(host)
+            amg.build(A)
+        # the upload ends synchronised (AMGPreconditioner.upload)
+        with span("refresh_amg: extract and upload", log=self.log):
+            amg.upload()
+            amg.plan(asm)
+        return amg.data
+
+    def p1_values(self, u_owned, load: float) -> torch.Tensor:
+        """(nnz,) float64 values of the assembled p = 1 matrix at (u, load)
+        before its BC masks, on the rank's device, the same on every rank:
+        each rank's element matrices from its stash (span
+        pc/amg/elem_mats), all of them gathered, taken in the global
+        element order and reduced into the CSR slots as the serial
+        p1_values does."""
+        stage = self.log.stage
         with stage("refresh_amg: residual and stash"):
             _, stash, _ = self._entry_residual(u_owned, load)
-        with stage("refresh_amg: element matrices"):
-            em = self._em_mu(self.qdata, stash.mu)
-            if self.composite:
-                em = em + self._em_p(self.qdata_p, stash.p)
-            nd = em.shape[-1]
-            pad = em.new_zeros((self.part.nelem_max, nd, nd))
-            pad[: em.shape[0]] = em
-        with stage("refresh_amg: all_gather"):
-            allm = self.comm.all_gather(pad).reshape(-1, nd, nd)
-        if self._amg is None:
-            with stage("refresh_amg: CSR pattern"):
-                # position of each global element among the gathered
-                # blocks
-                gids = self.part.elem_gid.reshape(-1)
-                pos = np.nonzero(gids >= 0)[0]
-                self._elem_order = torch.as_tensor(
-                    pos[np.argsort(gids[pos])], device=self.device)
-                # the serial problem's assembler when it has one: the
-                # same p = 1 pattern and BC masks
-                self._assembler0 = getattr(prob, "_assembler0", None)
-                if self._assembler0 is None:
-                    space0 = prob.spaces[0]
-                    self._assembler0 = CSRAssembler(
-                        space0.conn, space0.num_nodes,
-                        prob._level_mask(space0).cpu().numpy(),
-                        device=self.device)
-                self._amg = AMGPreconditioner(self.dtype, self.device)
-        with stage("refresh_amg: CSR reduce"):
-            vals = self._assembler0.assemble_values(allm[self._elem_order])
-        with stage("refresh_amg: d2h"):
-            vals = vals.to(torch.float64).cpu().numpy()
-        # the host CSR counts with the native setup; the upload ends
-        # synchronised (AMGPreconditioner.upload)
-        with span("refresh_amg: native setup", log=self.log):
-            self._amg.build(self._assembler0.from_values(vals))
-        with span("refresh_amg: extract and upload", log=self.log):
-            self._amg.upload()
-        return self._amg.data
+        with span("pc/amg/elem_mats"):
+            with stage("refresh_amg: element matrices"):
+                K, K_p = self._tangent(stash)
+                lv = self.levels[0]
+                em = element_matrices_of(K, lv.basis.grad)
+                if self.composite:
+                    em = em + element_matrices_of(K_p, lv.pbasis.grad)
+                nd = em.shape[-1]
+                pad = em.new_zeros((self.part.nelem_max, nd, nd))
+                pad[: em.shape[0]] = em
+            with stage("refresh_amg: all_gather"):
+                allm = self.comm.all_gather(pad).reshape(-1, nd, nd)
+            if self._amg is None:
+                with stage("refresh_amg: CSR pattern"):
+                    self._csr_pattern()
+            with stage("refresh_amg: CSR reduce"):
+                vals = self._assembler0.assemble_values(
+                    allm[self._elem_order])
+        return vals.to(torch.float64)
+
+    def _csr_pattern(self):
+        """The position of each global element among the gathered blocks,
+        the p = 1 CSR assembler (the serial problem's when it has one: the
+        same pattern and BC masks) and the AMG."""
+        prob = self.problem
+        gids = self.part.elem_gid.reshape(-1)
+        pos = np.nonzero(gids >= 0)[0]
+        self._elem_order = torch.as_tensor(pos[np.argsort(gids[pos])],
+                                           device=self.device)
+        self._assembler0 = getattr(prob, "_assembler0", None)
+        if self._assembler0 is None:
+            space0 = prob.spaces[0]
+            self._assembler0 = CSRAssembler(
+                space0.conn, space0.num_nodes,
+                prob._level_mask(space0).cpu().numpy(), device=self.device)
+        self._amg = AMGPreconditioner(self.dtype, self.device)
 
     def pc_setup(self, u_owned, load_increment: float):
         """Preconditioner refresh (level inverse diagonals and, for p-MG,
@@ -390,16 +455,23 @@ class DistributedProblem:
         stage = self.log.stage
         with stage("pc_setup: residual and stash"):
             _, stash, _ = self._entry_residual(u_owned, load_increment)
-        with stage("pc_setup: level diagonals"):
-            dinvs = [1.0 / self._level_diag(l, stash)
-                     for l in range(len(self.levels) if self.use_mg else 1)]
         if not self.use_mg:
-            return tuple(dinvs)
+            with stage("pc_setup: level diagonals"):
+                dinv = 1.0 / self._level_diag(0, stash)
+            stash.tangent = None
+            return (dinv,)
+        degs = self.problem.level_degrees
+        with stage("pc_setup: level diagonals"):
+            dinvs = []
+            for l in range(len(self.levels)):
+                with span(f"pc/mg/p{degs[l]}/diag"):
+                    dinvs.append(1.0 / self._level_diag(l, stash))
+        stash.tangent = None
         bounds = []
         for l, lv in enumerate(self.levels):
             valid = ~lv.mask & lv.ra.owned_valid
-            deg = self.problem.level_degrees[l]
-            with stage(f"pc_setup: eigenvalue estimate p{deg}"):
+            with stage(f"pc_setup: eigenvalue estimate p{degs[l]}"), \
+                    span(f"pc/mg/p{degs[l]}/eig"):
                 bounds.append(dmg.estimate_eigs_dist(
                     self._level_apply(l, stash), dinvs[l], valid, self.comm))
         return tuple(dinvs), tuple(bounds)
@@ -422,23 +494,32 @@ class DistributedProblem:
                                                      lv[0])
                 return torch.where(lv[0].mask, 0.0, out)
 
+        # the serial V-cycle's span names (solve/pmg.py), under the profiler
+        names = [{k: f"vcycle/p{d}/{k}" for k in ("smooth", "restrict",
+                                                   "prolong")}
+                 for d in self.problem.level_degrees[-nlev:]]
+
         def vcycle(bf):
             bs, xs = [None] * nlev, [None] * nlev
             bs[-1] = bf
             for l in range(nlev - 1, 0, -1):
-                xs[l] = dmg.chebyshev_dist(A[l], bs[l], dinvs[l], *bounds[l],
-                                           cfg.smooth_its)
-                r = bs[l] - A[l](xs[l])
-                bs[l - 1] = torch.where(lv[l - 1].mask, 0.0,
-                                        dmg.restrict(r, lv[l - 1], lv[l]))
+                with fine(names[l]["smooth"]):
+                    xs[l] = dmg.chebyshev_dist(A[l], bs[l], dinvs[l],
+                                               *bounds[l], cfg.smooth_its)
+                with fine(names[l]["restrict"]):
+                    r = bs[l] - A[l](xs[l])
+                    bs[l - 1] = torch.where(lv[l - 1].mask, 0.0,
+                                            dmg.restrict(r, lv[l - 1], lv[l]))
             xs[0] = coarse_solve(bs[0])
             for l in range(1, nlev):
-                x = xs[l] + torch.where(lv[l].mask, 0.0,
-                                        dmg.prolong(xs[l - 1], lv[l - 1],
-                                                    lv[l]))
-                r = bs[l] - A[l](x)
-                xs[l] = x + dmg.chebyshev_dist(A[l], r, dinvs[l], *bounds[l],
-                                               cfg.smooth_its)
+                with fine(names[l]["prolong"]):
+                    x = xs[l] + torch.where(lv[l].mask, 0.0,
+                                            dmg.prolong(xs[l - 1], lv[l - 1],
+                                                        lv[l]))
+                with fine(names[l]["smooth"]):
+                    r = bs[l] - A[l](x)
+                    xs[l] = x + dmg.chebyshev_dist(A[l], r, dinvs[l],
+                                                   *bounds[l], cfg.smooth_its)
             return xs[-1]
 
         return vcycle, A[-1]
@@ -504,7 +585,37 @@ class DistributedProblem:
         pc_setup ("pc_seconds"), both synchronised, and the seconds in
         the exchanges ("exchange_seconds", per kind: Comm.seconds, the
         host's under gloo, the device's under NCCL) and in the stages of
-        refresh_amg and pc_setup ("stage_seconds": the `log`'s)."""
+        refresh_amg and pc_setup ("stage_seconds": the `log`'s). The
+        continuation to the device's sync is the request "solve" (see the
+        module's docstring); the answer's all-gather comes after it."""
+        ex0 = self.comm.seconds()
+        st0 = self.log.seconds()
+        with request("solve"):
+            u, info = self._continuation(num_increments, max_newton, rtol)
+            if self.comm.nccl:
+                # the stream's waits for the exchanges, on the device's
+                # clock (Comm.seconds synchronises)
+                for k, v in self.comm.seconds().items():
+                    add_ms(SPANS[k][1], 1e3 * (v - ex0[k]))
+            self._sync()
+        self._res_cache = None
+        u_np = self.to_global(u)
+        if self._bc_final is None:
+            prob = self.problem
+            with span("newton/bc"):
+                self._bc_final = (prob.bc_mask.cpu().numpy(),
+                                  prob.bcs.values(prob._coords, 1.0).T)
+        mask, bc_vals = self._bc_final
+        u_np = np.where(mask, bc_vals, u_np)
+        info["exchange_seconds"] = {k: v - ex0[k] for k, v in
+                                    self.comm.seconds().items()}
+        info["stage_seconds"] = {k: v - st0.get(k, 0.0)
+                                 for k, v in self.log.seconds().items()}
+        return u_np, info
+
+    def _continuation(self, num_increments, max_newton, rtol):
+        """solve's load increments from u = 0: (u owned, info without the
+        exchange and stage seconds)."""
         cfg = self.problem.config
         n_inc = num_increments or cfg.num_increments
         u = self.to_owned(np.zeros((3, self.problem.fine_space.num_nodes)))
@@ -515,33 +626,36 @@ class DistributedProblem:
         floor_atol = 0.0
         opts = NewtonOptions(rtol=rtol, max_it=max_newton)
         step_s, pc_s = [], []
-        ex0 = self.comm.seconds()
-        st0 = self.log.seconds()
         for inc in range(1, n_inc + 1):
             load = inc / n_inc
             policy = None
             converged, reason = False, "max_it"
             pc_lag = max(getattr(cfg, "pc_lag", 1), 1)
             for k in range(max_newton):
-                t0 = time.perf_counter()
-                refresh = self.model.nonlinear and (k % pc_lag == 0)
-                if self.use_mg and (refresh or amg_data is None):
-                    try:
-                        amg_data = self.refresh_amg(u, load)
-                    except FloatingPointError:
-                        # BC jump pushed the state outside the constitutive
-                        # domain (NaN stash): divergence, as the serial loop
-                        converged, reason = False, "diverged"
-                        rnorm = float("nan")
-                        break
-                if refresh or pc is None:
-                    pc = self.pc_setup(u, load)
-                self._sync()
-                pc_s.append(time.perf_counter() - t0)
-                u, rnorm_in, rnorm, iters, step_norm, unorm = \
-                    self.newton_step(u, load, amg_data=amg_data, pc=pc)
-                self._sync()
-                step_s.append(time.perf_counter() - t0)
+                with span("newton/step"):
+                    t0 = time.perf_counter()
+                    refresh = self.model.nonlinear and (k % pc_lag == 0)
+                    with span("pc"):
+                        if refresh or pc is None:
+                            count("pc.builds")
+                        if self.use_mg and (refresh or amg_data is None):
+                            try:
+                                amg_data = self.refresh_amg(u, load)
+                            except FloatingPointError:
+                                # BC jump pushed the state outside the
+                                # constitutive domain (NaN stash):
+                                # divergence, as the serial loop
+                                converged, reason = False, "diverged"
+                                rnorm = float("nan")
+                                break
+                        if refresh or pc is None:
+                            pc = self.pc_setup(u, load)
+                        self._sync()
+                    pc_s.append(time.perf_counter() - t0)
+                    u, rnorm_in, rnorm, iters, step_norm, unorm = \
+                        self.newton_step(u, load, amg_data=amg_data, pc=pc)
+                    self._sync()
+                    step_s.append(time.perf_counter() - t0)
                 total_ksp += int(iters)
                 total_newton += 1
                 if policy is None:
@@ -558,12 +672,7 @@ class DistributedProblem:
                 floor_atol = max(floor_atol, rnorm)
             if not converged and reason == "diverged":
                 break  # elasticity.c:668-672
-        self._res_cache = None
-        u_np = self.to_global(u)
-        prob = self.problem
-        bc_vals = prob.bcs.values(prob._coords, 1.0).T
-        u_np = np.where(prob.bc_mask.cpu().numpy(), bc_vals, u_np)
-        return u_np, {
+        return u, {
             "newton_iters": total_newton,
             "ksp_iters": total_ksp,
             "rnorm": float(rnorm),
@@ -571,8 +680,4 @@ class DistributedProblem:
             "reason": reason,
             "step_seconds": step_s,
             "pc_seconds": pc_s,
-            "exchange_seconds": {k: v - ex0[k]
-                                 for k, v in self.comm.seconds().items()},
-            "stage_seconds": {k: v - st0.get(k, 0.0)
-                              for k, v in self.log.seconds().items()},
         }

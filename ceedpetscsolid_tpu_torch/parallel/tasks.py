@@ -6,10 +6,12 @@ and Python values, gathered on rank 0 (the other ranks return None).
                    space; rank 0 returns every rank's blocks
     problem_task   an ElasticityProblem and its DistributedProblem, then a
                    list of jobs: "residual" (residual_apply), "step" (one
-                   newton_step from given owned blocks), "solve",
-                   "fixed_step" (a timed fixed-work Newton step, the
-                   weak-scaling point); each job's fused-apply launches on
-                   every rank, by path and by (physics, mode, P, Q)
+                   newton_step from given owned blocks), "solve" (with
+                   each solve's request record), "fixed_step" (a timed
+                   fixed-work Newton step, the weak-scaling point),
+                   "refresh" (the AMG refreshes at seeded states beside a
+                   native twin); each job's fused-apply launches on every
+                   rank, by path and by (physics, mode, P, Q)
 
 Every rank checks, after its imports and its work, that no JAX module is
 loaded: the port's ranks run without JAX.
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from ..utils.timing import sync
+from ..utils.timing import records, request, sync
 from .launch import THREAD_ENV
 
 
@@ -176,14 +178,58 @@ def fixed_step(dp, reps: int, profile: bool = False) -> dict:
             "profile": split}
 
 
+def amg_levels(amg) -> list:
+    """The device data of an AMGPreconditioner's levels as numpy arrays
+    (values, inverse diagonals, lambda_max; the coarse inverse last)."""
+    out = [{k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in lv.items()
+            if k in ("a_val", "a_dense", "dinv", "lam")}
+           for lv in amg.data["levels"]]
+    return out + [amg.data["coarse_inv"].cpu().numpy()]
+
+
+def refresh_pair(dp, seeds, scale: float) -> list:
+    """dp.refresh_amg at seeded states u (standard normal times `scale`),
+    beside a native twin on the host refreshed from the same p = 1 values
+    (built at seeds[0], as dp's first refresh builds): for each seed the
+    device's and the twin's levels (amg_levels), every level's float64
+    CSR values ("values": the twin's, and after the first seed the device
+    refresh's, which is run once more for them) and the counters of the
+    refresh's request."""
+    from ..solve.amg import AMGPreconditioner
+
+    N = dp.problem.fine_space.num_nodes
+    twin = AMGPreconditioner(torch.float64, "cpu")
+    out = []
+    for i, seed in enumerate(seeds):
+        u = dp.to_owned(np.random.default_rng(seed).standard_normal(
+            (3, N)) * scale)
+        vals = dp.p1_values(u, 1.0)
+        with request("refresh") as req:
+            dp.refresh_amg(u, 1.0)
+        twin.setup(dp._assembler0.from_values(vals.cpu().numpy()))
+        dev = amg_levels(dp._amg)
+        values = (None if i == 0 else
+                  [v.cpu().numpy() for v in dp._amg.refresh(vals)])
+        out.append({"device": dev, "native": amg_levels(twin),
+                    "values": values,
+                    "native_values": [st["vals"][:st["rowptr"][-1]].copy()
+                                      for st in twin._struct],
+                    "counts": dict(req.totals.counts)})
+    return out
+
+
 def problem_task(rank, world, device, config: dict, jobs):
     """config: Config keyword arguments (device aside). jobs: a list of
     (name, arguments): ("residual", (u_global or None (zeros), load)),
     ("step", (owned blocks (world, 3, n_owned_max) in the JAX layout or
     None (zeros), load)), ("solve", keyword arguments of
-    DistributedProblem.solve), ("fixed_step", keyword arguments of
-    fixed_step: reps, profile). Launch counts and batch applies are set to
-    0 just before each job and read just after."""
+    DistributedProblem.solve, and "repeat": solves one after another,
+    default 1; the last one's answer and info, every one's request record
+    on rank 0), ("fixed_step", keyword arguments of fixed_step: reps,
+    profile), ("refresh", (seeds, scale): refresh_pair). Launch counts and
+    batch applies are set to 0 just before each job and read just
+    after."""
     from ..interop import owned_from_jax
     from ..ops import fused_apply as fa
     from ..problem import Config, ElasticityProblem
@@ -220,12 +266,18 @@ def problem_task(rank, world, device, config: dict, jobs):
         elif name == "fixed_step":
             res = fixed_step(dp, **args)
         elif name == "solve":
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t = time.perf_counter()
-            u, info = dp.solve(**(args or {}))
-            info["wall_s"] = time.perf_counter() - t
-            res = {"u": u, "info": info}
+            kw = dict(args or {})
+            recs = []
+            for _ in range(kw.pop("repeat", 1)):
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t = time.perf_counter()
+                u, info = dp.solve(**kw)
+                info["wall_s"] = time.perf_counter() - t
+                recs.append(records()[-1])
+            res = {"u": u, "info": info, "records": recs}
+        elif name == "refresh":
+            res = refresh_pair(dp, *args)
         else:
             raise ValueError(f"unknown job {name!r}")
         out[name] = res

@@ -15,8 +15,8 @@ the device stay as they are. Given the assembler its matrices come from
 (`setup(A, source)`), the first setup also plans the refresh on the device
 (solve/galerkin.py), and every later refresh (`refresh`) computes the
 levels' values, diagonals, lambda_max and coarse inverse there from the
-fine values, in float64: none go to the host. Without it (the distributed
-driver) a refresh is native (amg_refresh) and uploads the levels again.
+fine values, in float64: none go to the host. Without it a refresh is
+native (amg_refresh) and uploads the levels again.
 
 Level representations (`_level_rep`): level 0 is 'mf' when the hierarchy
 was built with top_mf=True (the caller's matrix-free p = 1 apply, which on
@@ -95,7 +95,14 @@ class AMGPreconditioner:
         assembles (span pc/amg/plan; `refreshes_from`, `refresh`)."""
         self.build(A)
         self.upload()
-        if source is not None and self._plan is None:
+        if source is not None:
+            self.plan(source)
+
+    def plan(self, source):
+        """Plan the device refresh of the values that `source` (the
+        CSRAssembler of the built hierarchy's matrix) assembles, once a
+        hierarchy (span pc/amg/plan)."""
+        if self._plan is None:
             with span("pc/amg/plan"):
                 self._plan = self._plan_refresh()
             self._source = source

@@ -46,8 +46,8 @@ TOP = 8
 FUSED = re.compile(
     r"cps::\w+_kernel<\d+, (true|false), (?:(\d+), (\d+), )?\w+(?:, \d+)?>")
 # the span of the distributed V-cycle's replicated AMG coarse solve
-# (parallel/driver.py)
-AMG_SCOPE = "amg coarse apply"
+# (parallel/driver.py), the serial V-cycle's coarse span's name
+AMG_SCOPE = "vcycle/coarse"
 # step_split's label of idle time that no program span covers
 NO_SPAN = "(no span)"
 

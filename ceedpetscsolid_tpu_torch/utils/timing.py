@@ -308,6 +308,12 @@ class Recorder:
         for acc in self._accs:
             acc.count(name, n)
 
+    def add_ms(self, name: str, ms: float) -> None:
+        """Add device ms that the caller timed itself (CUDA events) under
+        the span name `name`, in every open request and log."""
+        for acc in self._accs:
+            acc.add_ms(name, ms)
+
     def records(self) -> list:
         """The kept request records, oldest first."""
         return list(self._records)
@@ -347,6 +353,7 @@ span = RECORDER.span
 fine = RECORDER.fine
 request = RECORDER.request
 count = RECORDER.count
+add_ms = RECORDER.add_ms
 records = RECORDER.records
 
 
