@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (ceedpetscsolid_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase4b       # phase 4b, then 6-7's counters
     python3 chip_smoke.py --phase18 d     # phase 18's parts alone
     python3 chip_smoke.py --phase20       # the whole rank-count sweep
 
@@ -75,6 +76,19 @@ Phases, each of which raises on failure:
      version, residual and J.v, at the 24^3 degree-4 shapes, in float32: of
      one call, the host's enqueue included, and of the device's work alone
      (utils.timing.cuda_device_ms), with the bound and share as in 3c;
+  4b. the owner-sum kernel (csrc/owner_sum.cu, Restriction.scatter_add on
+     the card) on the restrictions the main paths build (owner_sum_cases:
+     24^3 and 28^3 p4, phase 7's p = 1, 2 levels on 16^3, the scrambled
+     4^3 box at p2, one rank's restr_int and restr_bnd of phase 18's
+     partition) for 1, 3 and 8 components in float32 and float64: bit for
+     bit the sum in the kernel's order (csr_sum: plain torch on the card),
+     and
+     within 8 eps of each node's sum of magnitudes of the padded plain sum
+     that ran before it; then at 28^3 p4 (3 and 1 components float32, 3
+     and 8 float64) call and device times of the kernel, the padded plain
+     sum and one index_add_ into zeros (atomics: not in a fixed order),
+     beside the bound from the bytes (E-vector and positions read once,
+     offsets once, L-vector written once, at 3.35 TB/s);
   5. the reference smoke flags in hyperFS form through cli.main, checked
      against the JAX package's result on the same flags;
   6. slice 1's main path: hyperFS degree 4 on a 16^3 box (823,875 DoF),
@@ -204,12 +218,16 @@ stopped being SPD in float32) no more often than in the float64 twin
 (phase 12's clamp solves, whose tangents are themselves indefinite at the
 first Newton steps), and not at all elsewhere. Kernel launch counters are
 set to 0 just before each main path (phases 6-17, 19) and read just after,
-the fused apply's also per copy path (phase 18: per job on every rank).
+the fused apply's also per copy path (phase 18: per job on every rank);
+every solve through ElasticityProblem's request must launch the owner-sum
+kernel once an owner-sum (restr.owner_sum_kernel = restr.owner_sum_calls).
 Then one JSON line of per-kernel
 results (each with its bound from this run's shapes, `bound_by`, and
 `library_ms`: bare `tab[idx]` for the probes, none for the fused apply,
-which no one PyTorch call computes; K6 also carries `matmul_ms`, the
-one-hot product through cuBLAS, and K5 its production-shape numbers),
+which no one PyTorch call computes, index_add_ for the owner-sum, whose
+rows count the kernel's launches in phases 6 and 7; K6 also carries
+`matmul_ms`, the one-hot product through cuBLAS, and K5 its
+production-shape numbers),
 the card line, and as the last line
 {"ok": true, "device": {...}}. The generic tile's rows name the body
 (generic_plan) and the dtype of the shape they time. Without a CUDA
@@ -365,6 +383,12 @@ PROBE_TPU = {"take": "scripts/try_pallas_gather.py:44",
              "take_along_axis": "scripts/try_pallas_gather.py:56",
              "loop": "scripts/try_pallas_gather.py:70",
              "onehot": "scripts/try_pallas_gather.py:85"}
+OWNER_SUM_SOURCE = "ceedpetscsolid_tpu_torch/csrc/owner_sum.cu"
+OWNER_SUM_BOX = 28                   # phase 4b: the benchmark's 28^3 box
+OWNER_SUM_NCOMP = (1, 3, 8)          # multiplicity, fields, diagnostics
+# phase 4b's times at OWNER_SUM_BOX p4: (components, dtype)
+OWNER_SUM_TIMED = ((3, "float32"), (1, "float32"), (3, "float64"),
+                   (8, "float64"))
 FAILED = []                          # phase-3 comparisons that failed
 # phase 3's tile edges: (label, box faces, degree, misaligned streams)
 EDGE_CASES = (("1^3 p4 (one element)", (1, 1, 1), 4, False),
@@ -625,6 +649,174 @@ def gather_phase(dev, card):
         f"call {prod['plain_ms']:.4f} ms, device {prod['plain_device_ms']:.4f}"
         f" ms ({prod['plain_gbps']:.1f} GB/s) ({card})")
     return launches, errs, times, lib, bounds, prod
+
+
+def owner_sum_cases():
+    """Phase 4b's restrictions, as the main paths build them: (label,
+    conn, num_nodes, node_ranges). The 24^3 and 28^3 p4 boxes (phase 3's
+    and the benchmark's), phase 7's p-MG levels on the 16^3 box (p = 1,
+    2), the scrambled 4^3 box at p2, and rank 1's interior and boundary
+    batches of the 16^3 p4 box over four ranks (phase 18's partition;
+    no node ranges, as parallel/dist.RankArrays builds them)."""
+    from ceedpetscsolid_tpu_torch.mesh.box import box_mesh
+    from ceedpetscsolid_tpu_torch.mesh.fespace import build_fespace
+    from ceedpetscsolid_tpu_torch.mesh.scrambled import scrambled_box_mesh
+    from ceedpetscsolid_tpu_torch.parallel.partition import partition_space
+
+    def space(label, mesh, degree):
+        s = build_fespace(mesh, degree)
+        return label, s.conn, s.num_nodes, s.entity_node_ranges()
+
+    m = SOLVE_BOX
+    for n in (KERNEL_BOX, OWNER_SUM_BOX):
+        yield space(f"{n}^3 p4 box", box_mesh((n, n, n)), 4)
+    for deg in (1, 2):
+        yield space(f"{m}^3 p{deg} box (phase 7's level)",
+                    box_mesh((m, m, m)), deg)
+    yield space("4^3 p2 scrambled", scrambled_box_mesh((4, 4, 4), 4), 2)
+    s = build_fespace(box_mesh((m, m, m)), 4)
+    part = partition_space(s.conn, s.num_nodes, DIST_WORLD)
+    conn = part.conn_local[1][part.elem_valid[1]]
+    k = part.n_elem_int
+    yield (f"{m}^3 p4 rank 1 of {DIST_WORLD}, restr_int", conn[:k],
+           part.n_owned_max, None)
+    yield (f"{m}^3 p4 rank 1 of {DIST_WORLD}, restr_bnd", conn[k:],
+           part.n_local, None)
+
+
+def csr_sum(ve, offsets, positions):
+    """The owner-sum in the kernel's order, in plain torch on ve's device:
+    the k-th position of a node (ascending, from 0) added into running sum
+    k mod 4, each started at +0.0, and the node's value (s0 + s1) +
+    (s2 + s3) (IEEE additions in ve's dtype, as the kernel makes them)."""
+    import torch
+
+    flat = ve.reshape(ve.shape[0], -1)
+    offsets, positions = offsets.long(), positions.long()
+    counts = offsets[1:] - offsets[:-1]
+    acc = torch.zeros((4, ve.shape[0], counts.numel()), dtype=ve.dtype,
+                      device=ve.device)
+    for k in range(int(counts.max())):
+        rows = torch.nonzero(counts > k).squeeze(1)
+        acc[k % 4][:, rows] += flat[:, positions[offsets[rows] + k]]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def padded_sum(ve, blocks, zero):
+    """The owner-sum as plain torch ran it on the card before the kernel
+    (and still runs it on the CPU): ve with a zero column appended, one
+    index_select a padded (nodes, K) block, a sum over K."""
+    import torch
+
+    ncomp = ve.shape[0]
+    ext = torch.cat([ve.reshape(ncomp, -1), zero], dim=1)
+    parts = [ext.index_select(1, idx).reshape(ncomp, -1, K).sum(dim=2)
+             for K, idx in blocks]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def owner_sum_counts(tag):
+    """The owner-sum counters of the last request (utils/timing: a request
+    starts them at 0): calls and kernel launches; raises unless every call
+    launched the kernel."""
+    from ceedpetscsolid_tpu_torch.utils import timing
+
+    counts = timing.records()[-1]["counts"]
+    calls = counts.get("restr.owner_sum_calls", 0)
+    kernel = counts.get("restr.owner_sum_kernel", 0)
+    if not calls or kernel != calls:
+        raise AssertionError(f"{tag}: {kernel} owner-sum kernel launches for "
+                             f"{calls} owner-sums")
+    return kernel
+
+
+def owner_sum_phase(dev, card):
+    """Phase 4b (see the module docstring). Returns the max abs difference
+    from the padded plain sum over every case (the kernel equals the
+    sum in its order bit for bit, else this raises) and the times at
+    OWNER_SUM_BOX p4: {(ncomp, dtype): {ms, device_ms, plain_ms,
+    plain_device_ms, library_ms, library_device_ms, bytes, bound_ms}}."""
+    import torch
+
+    from ceedpetscsolid_tpu_torch.ops.fused_apply import H100_BYTES_PER_S
+    from ceedpetscsolid_tpu_torch.ops.restriction import Restriction
+    from ceedpetscsolid_tpu_torch.utils.timing import cuda_device_ms
+    from ceedpetscsolid_tpu_torch.utils.timing import cuda_time_ms
+
+    log("[4b] owner-sum kernel (csrc/owner_sum.cu) vs the sum in its order "
+        "(bit for bit) and the padded plain sum, components "
+        f"{OWNER_SUM_NCOMP}, float32 and float64")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    err, times, bad = 0.0, {}, []
+    for label, conn, n, ranges in owner_sum_cases():
+        r = Restriction(conn, n, ranges, device=dev)
+        cpu = Restriction(conn, n, ranges, device="cpu")
+        blocks = [(K, idx.to(dev)) for K, idx in cpu._t_blocks]
+        counts = torch.diff(r.offsets)
+        row = []
+        for dtype in (torch.float32, torch.float64):
+            eps = torch.finfo(dtype).eps
+            for ncomp in OWNER_SUM_NCOMP:
+                ve = torch.randn((ncomp, *conn.shape), generator=gen,
+                                 dtype=dtype, device=dev)
+                zero = ve.new_zeros((ncomp, 1))
+                got = r.scatter_add(ve)
+                want = csr_sum(ve, r.offsets, r.positions)
+                same = torch.equal(got.view(torch.uint8),
+                                   want.view(torch.uint8))
+                diff = (got - padded_sum(ve, blocks, zero)).abs()
+                # each order errs by at most (K - 1) u sum|v|: 8 eps bounds
+                # the two apart at K <= 8
+                tol = 8 * eps * csr_sum(ve.abs(), r.offsets, r.positions)
+                if not same or (diff > tol).any():
+                    bad.append((label, ncomp, str(dtype)))
+                err = max(err, float(diff.max()))
+                row.append(f"{ncomp}{'d' if dtype == torch.float64 else 'f'}"
+                           f" {'equal' if same else 'DIFFERS'}"
+                           f" {float(diff.max()):.1e}")
+        log(f"    {label:38s} {conn.shape[0]:6d} x {conn.shape[1]:3d}, "
+            f"{n:8d} nodes, K {int(counts.min())}-{int(counts.max())}, "
+            f"{len(blocks)} padded block(s): " + ", ".join(row))
+        if label != f"{OWNER_SUM_BOX}^3 p4 box":
+            continue
+        for ncomp, dn in OWNER_SUM_TIMED:
+            dtype = getattr(torch, dn)
+            ve = torch.randn((ncomp, *conn.shape), generator=gen, dtype=dtype,
+                             device=dev)
+            zero = ve.new_zeros((ncomp, 1))
+            idx = r.conn.reshape(-1)
+            flat = ve.reshape(ncomp, -1)
+            calls = {
+                "": lambda: r.scatter_add(ve),
+                "plain_": lambda: padded_sum(ve, blocks, zero),
+                "library_": lambda: torch.zeros(
+                    (ncomp, n), dtype=dtype, device=dev).index_add_(
+                        1, idx, flat)}
+            t = {}
+            for k, fn in calls.items():
+                t[k + "ms"] = cuda_time_ms(fn)
+                t[k + "device_ms"] = cuda_device_ms(fn)
+            t["bytes"] = (ve.numel() * ve.element_size()
+                          + ncomp * n * ve.element_size()
+                          + 4 * (r.positions.numel() + r.offsets.numel()))
+            t["bound_ms"] = 1e3 * t["bytes"] / H100_BYTES_PER_S
+            times[(ncomp, dn)] = t
+        del ve, zero, flat, idx, calls
+    if bad:
+        raise AssertionError(f"owner-sum kernel disagrees: {bad}")
+    log(f"    times at {OWNER_SUM_BOX}^3 p4 ({card}): one call (host enqueue "
+        "included) / device alone, median of 20 (warm L2: the same input "
+        "each call); bound: the bytes read and written once at 3.35 TB/s")
+    for (ncomp, dn), t in times.items():
+        log(f"    {ncomp} comp {dn:7s} kernel {t['ms']:.4f} / "
+            f"{t['device_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bytes'] / 1e6:.1f} MB), share "
+            f"{t['bound_ms'] / t['device_ms']:.3f}; padded plain "
+            f"{t['plain_ms']:.4f} / {t['plain_device_ms']:.4f} ms; "
+            f"index_add_ {t['library_ms']:.4f} / "
+            f"{t['library_device_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return err, times
 
 
 def dist_launch_check(tag, out, jobs):
@@ -1305,6 +1497,9 @@ def main():
     del f, q, u, v, st, res_op, jac_op, calls
     torch.cuda.empty_cache()
 
+    # ---- 4b. the owner-sum kernel -------------------------------------------
+    os_err, os_times = owner_sum_phase(dev, card)
+
     # ---- 5. reference smoke flags in hyperFS form ---------------------------
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -1321,11 +1516,13 @@ def main():
               by_physics=False, **kw):
         """One -test increment (hyperFS degree 4 unless kw says otherwise);
         launch counts are set to 0 just before the solve and read just
-        after, by (mode, P, Q) or by (physics, mode, P, Q)."""
+        after, by (mode, P, Q) or by (physics, mode, P, Q); the owner-sum's
+        kernel launches of the solve's request, each owner-sum's."""
         prob = make_problem(box, multigrid, dev, dtype, level_quadrature,
                             **kw)
         fa.COUNTS.reset()
         info = prob.solve()
+        last_owner[0] = owner_sum_counts(f"{multigrid} {box}^3 {dtype}")
         counts = dict(fa.COUNTS.by_physics if by_physics else fa.COUNTS.by_pq)
         last_paths.clear()
         last_paths.update(fa.COUNTS.by_path)
@@ -1337,6 +1534,7 @@ def main():
             prob.strain_energy(info.u)
 
     last_paths = {}         # the last solve's fused-apply launches per path
+    last_owner = [0]        # ... owner-sum kernel launches (= owner-sums)
     last_shapes = {}        # ... per (physics, mode, P, Q, elements)
     last_pq_paths = {}      # ... per (physics, mode, P, Q, path)
     # the main paths' generic-tile launches per (physics, mode, P, Q,
@@ -1360,7 +1558,8 @@ def main():
         log("    kernel launches: " + ", ".join(
             f"{' '.join(map(str, key[:-2]))} (P,Q)=({key[-2]},{key[-1]}) {k}"
             for key, k in sorted(counts.items())))
-        log(f"    fused-apply launches per copy path: {last_paths}")
+        log(f"    fused-apply launches per copy path: {last_paths}; owner-sum "
+            f"kernel launches {last_owner[0]} (every owner-sum)")
         if not info.converged or not math.isfinite(err):
             raise AssertionError(f"{tag} solve did not converge")
 
@@ -1396,6 +1595,7 @@ def main():
            err6, en6)
     launches6 = {m: sum(k for (mm, _, _), k in c6.items() if mm == m)
                  for m in ("residual", "jacobian")}
+    owner6 = last_owner[0]
     if min(launches6.values()) < 1:
         raise AssertionError(f"main path skipped a kernel: {launches6}")
     t_mv = fine_jv_ms(prob, info)
@@ -1418,6 +1618,7 @@ def main():
         raise AssertionError(f"p-MG path skipped a kernel instance: {c7}")
     launches7 = {m: sum(k for (mm, _, _), k in c7.items() if mm == m)
                  for m in ("residual", "jacobian")}
+    owner7 = last_owner[0]
     t_mv = fine_jv_ms(prob, info)
     per_it = (info.solve_time - info.pc_time) / max(info.ksp_iters, 1) * 1e3
     log(f"    {launches7['jacobian'] / max(info.ksp_iters, 1):.1f} J.v kernel "
@@ -2044,6 +2245,15 @@ def main():
         for ph in (*NEW_PHYSICS, PRESSURE)
         for i, mode in enumerate(("residual", "jacobian"))
     ] + generic_rows() + [
+        {"name": f"owner_sum[{ncomp} comp {dn}]", "route": "cuda",
+         "source": OWNER_SUM_SOURCE, "replaces": None,
+         "launches": owner6 + owner7, "max_abs_err": os_err,
+         "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"],
+         **bound((t["bound_ms"], "bytes"), t["device_ms"]),
+         "library_ms": t["library_ms"],
+         "library_device_ms": t["library_device_ms"]}
+        for (ncomp, dn), t in os_times.items()
     ] + [
         {"name": f"gather_{name}", "route": "cuda", "source": PROBE_SOURCE,
          "replaces": PROBE_TPU[name], "launches": launches9[name],
@@ -2104,6 +2314,36 @@ def phase18_alone(parts):
     return 0
 
 
+def phase4b_alone():
+    """Phase 4b after the build alone, then phases 6 and 7's float32 solves
+    (Jacobi CG; p-MG with the Chebyshev coarse solve) with their owner-sum
+    counters, without the twins and the rest of their checks."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ceedpetscsolid_tpu_torch.csrc.build import build
+    from ceedpetscsolid_tpu_torch.utils.profile_solve import make_problem
+
+    t0 = time.perf_counter()
+    build()
+    card = card_line()
+    dev = torch.device("cuda")
+    log(f"[2] build {time.perf_counter() - t0:.1f} s ({card})")
+    owner_sum_phase(dev, card)
+    for tag, mg in (("6", "none"), ("7", "logarithmic")):
+        prob = make_problem(SOLVE_BOX, mg, dev, torch.float32)
+        info = prob.solve()
+        k = owner_sum_counts(f"[{tag}]")
+        log(f"[{tag}] hyperFS p4 {SOLVE_BOX}^3 float32, multigrid {mg}: "
+            f"converged {info.converged}, KSP {info.ksp_iters}, owner-sum "
+            f"kernel launches {k} (every owner-sum)")
+        if not info.converged:
+            raise AssertionError(f"[{tag}] solve did not converge")
+    return 0
+
+
 def phase20_alone():
     """The whole rank-count sweep after the build alone, e.g. on a
     four-card machine."""
@@ -2130,8 +2370,11 @@ def phase20_alone():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase18"] and len(sys.argv) == 3:
         sys.exit(phase18_alone(sys.argv[2]))
+    if sys.argv[1:] == ["--phase4b"]:
+        sys.exit(phase4b_alone())
     if sys.argv[1:] == ["--phase20"]:
         sys.exit(phase20_alone())
     if sys.argv[1:]:
-        sys.exit(f"usage: {sys.argv[0]} [--phase18 PARTS | --phase20]")
+        sys.exit(f"usage: {sys.argv[0]} [--phase4b | --phase18 PARTS | "
+                 "--phase20]")
     sys.exit(main())

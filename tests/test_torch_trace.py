@@ -19,7 +19,6 @@ from benchmark import trace as btrace
 from ceedpetscsolid_tpu_torch import native
 from ceedpetscsolid_tpu_torch.problem import Config, ElasticityProblem
 from ceedpetscsolid_tpu_torch.utils import timing
-from ceedpetscsolid_tpu_torch.utils.profile_solve import step_split
 
 # the always-on spans of a problem's first p-MG + AMG solve (its first
 # Newton step builds the AMG natively, the later ones refresh it on the
@@ -209,10 +208,18 @@ def cuda():
 def test_traced_solve_idle_is_named_on_gpu(cuda):
     """A traced 8^3 p-MG + AMG solve: the idle time the program's spans
     leave unnamed is under 10% of the window; a traced Jacobi CG solve on
-    the benchmark's 28^3 box: the owner-sum's CUDA event ms within 10% of
-    the profiler's device time of the kernels launched inside its spans
-    (at 8^3 the host, slower than those kernels, leaves the device idle
-    between them, and the events count that)."""
+    the benchmark's 28^3 box: the owner-sum's CUDA event ms hold the
+    profiler's device time of its kernel (csrc/owner_sum.cu, taken by name:
+    the profiler attaches no host range to a launch from the kernel
+    library), launched once a counted call, and exceed it by no more than
+    the device's idle wait before each launch. The start event fires when
+    the stream reaches it, so where the stream waits on the host it also
+    holds the host's steps to the launch (4.2-8.5 us a call against a
+    ~34-us kernel on an H100, so owner_sum_ms.cg reads 12-25% above the
+    kernel); a wrong span would add other operations' device time, which
+    no idle wait holds. Slack: the events' resolution, 0.5 us below and
+    1 us above a call. At 8^3 the host, slower than the kernels, leaves
+    the device idle inside the span, and the events count that."""
     prob = _problem(cuda, box=8, degree=4)
     prob.solve()
     tracer = btrace.Tracer(cuda)
@@ -231,6 +238,20 @@ def test_traced_solve_idle_is_named_on_gpu(cuda):
     with profile(activities=acts) as prof:
         prob._linear_solve(G, stash, refresh=False)
     rec = timing.records()[-1]
-    split = step_split(prof, 1.0, 1.0)
-    ms = split["spans"]["op/owner_sum"]["ms"]
-    assert rec["stream_ms"]["op/owner_sum"] == pytest.approx(ms, rel=0.1)
+    ops = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.name not in timing.RECORDER.profiled_names)
+    calls, kernel_ms, idle_ms, done = 0, 0.0, 0.0, None
+    for t0, t1, name in ops:
+        if "cps_restr::csr_gather_sum" in name:
+            calls += 1
+            kernel_ms += 1e-3 * (t1 - t0)
+            if done is not None:
+                idle_ms += 1e-3 * max(t0 - done, 0)
+        done = t1 if done is None else max(done, t1)
+    assert calls == rec["counts"]["restr.owner_sum_kernel"] > 0
+    ev = rec["stream_ms"]["op/owner_sum"]
+    assert kernel_ms - 0.5e-3 * calls <= ev
+    assert ev <= kernel_ms + idle_ms + 1e-3 * calls
