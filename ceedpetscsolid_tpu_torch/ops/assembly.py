@@ -1,16 +1,21 @@
-"""Analytic p = 1 element matrices and their fixed-pattern CSR assembly.
-Port of ceedpetscsolid_tpu/ops/assembly.py.
+"""The pointwise tangent, the element diagonals and p = 1 element matrices
+taken from it, and their fixed-pattern CSR assembly.
+Port of ceedpetscsolid_tpu/ops/assembly.py and of the diagonal assembly in
+ceedpetscsolid_tpu/ops/operator.py.
 
 Replaces the reference's finite-difference coloring assembly of the coarse
 Jacobian (SNESComputeJacobianDefaultColor, src/misc.c:167-173;
-DMCreateMatrix, elasticity.c:459-460) with direct analytic assembly: the
-pointwise Jacobian tensor K comes from 9 unit-gradient applications of the
-model's jacobian_qf (the operator diagonal's trick) and is contracted with
-the basis gradients into dense element matrices on the device. The slot
-reduction into the CSR value vector also runs on the device, in a fixed
-order. The (nnz,) float64 values cross to the host for the native AMG's
-first setup only (`from_values`); its later refreshes take them on the
-device (`masked`).
+DMCreateMatrix, elasticity.c:459-460) with direct analytic assembly, and
+its CeedOperatorLinearAssembleDiagonal (src/matops.c:206-244) with the same
+contraction's diagonal. The pointwise Jacobian tensor K at every
+quadrature point of one rule (`pointwise_tangent`) comes from ONE call of
+the model's jacobian_qf over the nine unit gradients; both drivers make it
+once a rule a Jacobian and take from it every element diagonal of the
+levels at that rule (`element_diagonal_of`) and the dense p = 1 element
+matrices (`element_matrices_of`), on the device. The slot reduction into
+the CSR value vector also runs on the device, in a fixed order. The (nnz,)
+float64 values cross to the host for the native AMG's first setup only
+(`from_values`); its later refreshes take them on the device (`masked`).
 
 BC handling: constrained rows and columns are eliminated and the diagonal
 set to 1 (the assembled analog of the solver-level masking).
@@ -23,47 +28,16 @@ import scipy.sparse as sp
 import torch
 
 from ..models.base import Mat3
-from ..utils.timing import fine
-
-
-def make_element_matrices(jacobian_qf, phys, basis, dtype):
-    """fn(qdata, stash) -> (nelem, 3 P3, 3 P3) element matrices, in dtype.
-
-    stash: (9, nelem, Q3) tensor or None. DOF order within the element:
-    (node i, component c) -> 3 i + c.
-    A_e[(i,c1),(j,c2)]
-        = sum_q sum_{d1,d2} Bg[d1,q,i] K[c1,d1,c2,d2](q) Bg[d2,q,j]
-    """
-    P3 = basis.P3
-    grad = basis.grad                       # (3, Q3, P3)
-
-    def fn(qdata, stash):
-        nelem, Q3 = qdata.shape[1], qdata.shape[2]
-        st = None if stash is None else Mat3(stash.unbind(0))
-        cols = []
-        for c2 in range(3):
-            row = []
-            for d2 in range(3):
-                # one unit-gradient application, a span under the profiler
-                with fine("op/elem_mats"):
-                    du = torch.zeros((3, 3, nelem, Q3), dtype=dtype,
-                                     device=qdata.device)
-                    du[c2, d2] = 1.0
-                    # ddv[c1, d1, e, q] = K[c1, d1, c2, d2]
-                    row.append(jacobian_qf(du, qdata, st, phys))
-            cols.append(torch.stack(row, dim=0))
-        K = torch.stack(cols, dim=0)        # (c2, d2, c1, d1, e, q)
-        return element_matrices_of(K, grad)
-
-    return fn
+from .basis import Basis3D
 
 
 def pointwise_tangent(jacobian_qf, phys, qdata, stash) -> torch.Tensor:
     """K (c2, d2, c1, d1, e, q) = K[c1, d1, c2, d2] at each quadrature
-    point, as make_element_matrices stacks it from nine unit-gradient
-    applications of jacobian_qf, from one: the nine unit gradients on a
+    point of qdata's rule: the response of jacobian_qf to the unit
+    gradient (c2, d2), all nine from one call, the unit gradients on a
     leading batch axis that qdata and the stash broadcast over (the
-    qfunction is pointwise, so each point's arithmetic is the same)."""
+    qfunction is pointwise, so each point's arithmetic is that of nine
+    calls, one a unit gradient)."""
     nelem, Q3 = qdata.shape[1], qdata.shape[2]
     st = None if stash is None else Mat3(stash.unbind(0))
     # du[c2', d2', k] = 1 where k = 3 c2' + d2'
@@ -73,10 +47,33 @@ def pointwise_tangent(jacobian_qf, phys, qdata, stash) -> torch.Tensor:
     return K.permute(2, 0, 1, 3, 4).reshape(3, 3, 3, 3, nelem, Q3)
 
 
+def diagonal_weights(basis: Basis3D) -> torch.Tensor:
+    """BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]: a basis's weights
+    for element_diagonal_of, made once at set-up."""
+    return torch.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
+
+
+def element_diagonal_of(K: torch.Tensor, BB: torch.Tensor) -> torch.Tensor:
+    """(3, nelem, P3) element diagonals of an operator from its pointwise
+    Jacobian K (c2, d2, c1, d1, e, q) (pointwise_tangent) and its basis's
+    diagonal_weights:
+    diag[c, e, p] = sum_q sum_{d1,d2} Bg[d1,q,p] K[c,d1,c,d2] Bg[d2,q,p]."""
+    nelem, P3 = K.shape[4], BB.shape[1]
+    diag_e = torch.zeros((3, nelem, P3), dtype=K.dtype, device=K.device)
+    for c2 in range(3):
+        for d2 in range(3):
+            diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2],
+                                       K[c2, d2, c2])
+    return diag_e
+
+
 def element_matrices_of(K: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     """(nelem, 3 P3, 3 P3) element matrices from the pointwise Jacobian
     K (c2, d2, c1, d1, e, q) = K[c1, d1, c2, d2] and the basis gradient
-    grad (3, Q3, P3), in make_element_matrices' DOF order."""
+    grad (3, Q3, P3). DOF order within the element: (node i, component
+    c) -> 3 i + c;
+    A_e[(i,c1),(j,c2)]
+        = sum_q sum_{d1,d2} Bg[d1,q,i] K[c1,d1,c2,d2](q) Bg[d2,q,j]."""
     nelem, P3 = K.shape[4], grad.shape[2]
     # tmp[c2, d2, c1, i, e, q] = sum_d1 grad[d1, q, i] K[...]
     tmp = torch.einsum("aqi,cdxaeq->cdxieq", grad, K)

@@ -9,7 +9,10 @@ Jacobian run the first four stages as one fused element apply
 the CPU), its pointwise physics named by a fused_apply.PHYSICS entry; the
 owner-sum is the deterministic Restriction.scatter_add. Under the profiler
 the fused residual and J.v are spans, op/residual and op/jv, beside the
-owner-sum's op/owner_sum (utils/timing.fine).
+owner-sum's op/owner_sum (utils/timing.fine). The assembled diagonals and
+element matrices of the preconditioners are not applications: they come
+from the pointwise tangent of ops/assembly.py, owner-summed by the same
+restrictions.
 
 One factory serves every p-multigrid level (spaces coarse -> fine). Each
 level applies its physics either at the FINE level's Gauss points through a
@@ -40,7 +43,6 @@ import torch
 
 from ..device import default_dtype, select_device
 from ..mesh.fespace import FESpace
-from ..models.base import Mat3
 from ..utils.timing import fine
 from . import fused_apply, geometry
 from .basis import Basis3D, _kron3, lagrange_matrices
@@ -287,66 +289,3 @@ class OperatorFactory:
         return 1.0 / r.scatter_add(torch.ones((1, r.nelem, r.P3),
                                               dtype=self.dtype,
                                               device=self.device))
-
-    # ------------------------------------------------------------------
-    def make_diagonal(self, jacobian_qf: Callable, phys, level: int = -1,
-                      native: bool = False) -> Callable:
-        """Assembled operator diagonal at `level` (CeedOperatorLinear-
-        AssembleDiagonal analog, src/matops.c:206-244): the element
-        diagonals of `element_diagonal`, owner-summed.
-        native=True builds it at the level's own quadrature (qdata and stash
-        arguments must then be the native ones).
-        """
-        lvl = self.levels[level]
-        elem = element_diagonal(jacobian_qf, phys,
-                                lvl.nat_basis if native else lvl.basis)
-
-        def apply(qdata, stash):
-            return lvl.restr.scatter_add(elem(qdata, stash))
-
-        return apply
-
-
-def element_diagonal(jacobian_qf: Callable, phys, basis: Basis3D) -> Callable:
-    """(qdata, stash) -> (3, nelem, P3) element diagonals of an operator:
-    diag[c,e,p] = sum_q sum_{d1,d2} Bg[d1,q,p] K[c,d1,c,d2] Bg[d2,q,p]
-    where K is the pointwise Jacobian tensor; K's (c, :, c, :) slices
-    come from 9 unit-gradient applications of the qfunction."""
-    BB = diagonal_weights(basis)
-
-    def fn(qdata, stash):
-        nelem, Q3 = qdata.shape[1], qdata.shape[2]
-        st = None if stash is None else Mat3(stash.unbind(0))
-        diag_e = torch.zeros((3, nelem, basis.P3), dtype=qdata.dtype,
-                             device=qdata.device)
-        du = torch.zeros((3, 3, nelem, Q3), dtype=qdata.dtype,
-                         device=qdata.device)
-        for c2 in range(3):
-            for d2 in range(3):
-                with fine("op/diag"):       # one unit-gradient application
-                    du[c2, d2] = 1.0
-                    Krow = jacobian_qf(du, qdata, st, phys)[c2]  # (3, e, q)
-                    du[c2, d2] = 0.0
-                    diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2],
-                                               Krow)
-        return diag_e
-
-    return fn
-
-
-def diagonal_weights(basis: Basis3D) -> torch.Tensor:
-    """BB[q, p, d1, d2] = Bg[d1, q, p] * Bg[d2, q, p]."""
-    return torch.einsum("aqp,bqp->qpab", basis.grad, basis.grad)
-
-
-def element_diagonal_of(K: torch.Tensor, BB: torch.Tensor) -> torch.Tensor:
-    """(3, nelem, P3) element diagonals from the pointwise Jacobian K
-    (c2, d2, c1, d1, e, q) (assembly.pointwise_tangent) and the basis's
-    diagonal_weights, summed as element_diagonal sums them."""
-    nelem, P3 = K.shape[4], BB.shape[1]
-    diag_e = torch.zeros((3, nelem, P3), dtype=K.dtype, device=K.device)
-    for c2 in range(3):
-        for d2 in range(3):
-            diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2],
-                                       K[c2, d2, c2])
-    return diag_e

@@ -16,16 +16,21 @@ exchange starts, the INTERIOR batch (elements whose nodes this rank owns,
 `partition_space`'s interior-first order) runs on the owned block while it
 is in flight, and the boundary batch runs once the ghosts arrived.
 
-Preconditioner data (level diagonals, Chebyshev bounds) is built once per
-Jacobian refresh (`pc_setup`, the KSPChebyshevEstEig cadence) and the AMG
-coarse hierarchy by `refresh_amg`, whose p = 1 element matrices every rank
-computes on its device and all ranks gather, so each assembles the same
-matrix: the first build runs the native setup on the host, and every
-later refresh computes the levels from those values on the device
-(solve/amg.py refresh, solve/galerkin.py), the same on every rank. Both
-record their stages in the problem's StageLog (`log`): they run outside a
-Newton step, so the synchronisation each stage ends with times nothing of
-the step.
+The preconditioner is built as the serial problem builds it. One
+pointwise tangent a Jacobian (ops/assembly.pointwise_tangent; every level
+here integrates at the fine rule) gives every level's diagonal
+(`pc_setup`, with the Chebyshev bounds, the KSPChebyshevEstEig cadence)
+and the AMG's p = 1 element matrices (`refresh_amg`). The smoother is
+solve/cg.chebyshev and the boundary values are the problem's
+(ElasticityProblem.bc_values). Every rank computes its element matrices
+on its device and all ranks gather them, so each assembles the same
+matrix: the first build runs the native setup on
+the host, and every later refresh computes the levels from those values
+on the device (solve/amg.py refresh, solve/galerkin.py), the same on every
+rank. Both record their stages in the rank's StageLog (`log`): they run
+outside a Newton step, so the synchronisation each stage ends with times
+nothing of the step. The V-cycle and the Newton step stay the JAX
+package's distributed ones (the post-smooth in correction form).
 
 A solve is a request of utils/timing ("solve"), its layers under the
 serial path's span names (newton/step, newton/residual, newton/bc: once
@@ -53,11 +58,11 @@ import numpy as np
 import torch
 
 from ..ops import fused_apply as fa
-from ..ops.assembly import (CSRAssembler, element_matrices_of,
+from ..ops.assembly import (CSRAssembler, diagonal_weights,
+                            element_diagonal_of, element_matrices_of,
                             pointwise_tangent)
-from ..ops.operator import diagonal_weights, element_diagonal_of
 from ..solve.amg import AMGPreconditioner
-from ..solve.cg import pcg
+from ..solve.cg import chebyshev, pcg
 from ..solve.newton import NewtonOptions, NewtonPolicy
 from ..utils.profile_solve import AMG_SCOPE
 from ..utils.timing import StageLog, add_ms, count, fine, request, span
@@ -485,7 +490,8 @@ class DistributedProblem:
 
         def coarse_solve(b0):
             if amg_data is None:
-                return dmg.chebyshev_dist(A[0], b0, dinvs[0], *bounds[0], 30)
+                return chebyshev(A[0], b0, dinvs[0], *bounds[0],
+                                 cfg.coarse_cheb_its)
             # a span under the profiler (utils/profile_solve.step_split)
             with fine(AMG_SCOPE):
                 g = dmg.owned_to_replicated_global(b0, lv[0], self.comm)
@@ -504,8 +510,8 @@ class DistributedProblem:
             bs[-1] = bf
             for l in range(nlev - 1, 0, -1):
                 with fine(names[l]["smooth"]):
-                    xs[l] = dmg.chebyshev_dist(A[l], bs[l], dinvs[l],
-                                               *bounds[l], cfg.smooth_its)
+                    xs[l] = chebyshev(A[l], bs[l], dinvs[l], *bounds[l],
+                                      cfg.smooth_its)
                 with fine(names[l]["restrict"]):
                     r = bs[l] - A[l](xs[l])
                     bs[l - 1] = torch.where(lv[l - 1].mask, 0.0,
@@ -518,8 +524,8 @@ class DistributedProblem:
                                                         lv[l]))
                 with fine(names[l]["smooth"]):
                     r = bs[l] - A[l](x)
-                    xs[l] = x + dmg.chebyshev_dist(A[l], r, dinvs[l],
-                                                   *bounds[l], cfg.smooth_its)
+                    xs[l] = x + chebyshev(A[l], r, dinvs[l], *bounds[l],
+                                          cfg.smooth_its)
             return xs[-1]
 
         return vcycle, A[-1]
@@ -604,7 +610,7 @@ class DistributedProblem:
             prob = self.problem
             with span("newton/bc"):
                 self._bc_final = (prob.bc_mask.cpu().numpy(),
-                                  prob.bcs.values(prob._coords, 1.0).T)
+                                  prob.bc_values(1.0).cpu().numpy())
         mask, bc_vals = self._bc_final
         u_np = np.where(mask, bc_vals, u_np)
         info["exchange_seconds"] = {k: v - ex0[k] for k, v in

@@ -136,25 +136,6 @@ def replicated_global_to_owned(g: torch.Tensor, lvl: DistLevel):
     return g[:, lvl.owned_gid]
 
 
-def chebyshev_dist(A, b, dinv, lo, hi, iters):
-    """Chebyshev smoothing from a zero guess with the distributed operator
-    (owned-block vectors; the bounds are host floats)."""
-    theta = 0.5 * (hi + lo)
-    delta = 0.5 * (hi - lo)
-    sigma1 = theta / delta
-    rho = 1.0 / sigma1
-    r = b
-    d = (dinv * r) / theta
-    x = d
-    for _ in range(iters - 1):
-        r = b - A(x)
-        rho_new = 1.0 / (2.0 * sigma1 - rho)
-        d = rho_new * rho * d + (2.0 * rho_new / delta) * (dinv * r)
-        rho = rho_new
-        x = x + d
-    return x
-
-
 def probe_vector(shape, dtype, device) -> torch.Tensor:
     """The eigenvalue estimate's 'noisy' right-hand side: the integer hash
     of the shard-local flat slot index, (i * 2654435761 mod 2^32) mod 65536

@@ -13,7 +13,11 @@ matvec, every level J.v and the AMG's level-0 matvec go through the fused
 element apply (ops/fused_apply.py), which on a CUDA device is the
 hand-written kernel. hyperFSIncomp is a composite operator: its deviatoric
 mu part at full quadrature plus its pressure part at Q = 1 + qextra points
-a direction, each with its own stash. The nodal diagnostics
+a direction, each with its own stash. A preconditioner build makes one
+pointwise tangent (ops/assembly.pointwise_tangent) a quadrature rule of
+the Jacobian, and takes every level's diagonal and the AMG's p = 1
+element matrices from it, as the distributed driver (parallel/driver.py)
+does; the boundary values are computed once a load. The nodal diagnostics
 (`diagnostics`, written to VTU files by post/vtu.py) are evaluated in
 float64 on the problem's device; a solve can stop at a load
 (`Config.stop_at_load`) and resume from a checkpoint
@@ -22,6 +26,7 @@ float64 on the problem's device; a solve can stop at a load
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
 from typing import Sequence
@@ -35,7 +40,9 @@ from .mesh.fespace import FESpace, build_fespace
 from .models import Physics, get_model, mms
 from .models.boundary import BoundaryConditions
 from .models.forcing import assemble_forcing
-from .ops.assembly import CSRAssembler, make_element_matrices
+from .ops.assembly import (CSRAssembler, diagonal_weights,
+                           element_diagonal_of, element_matrices_of,
+                           pointwise_tangent)
 from .ops.fused_apply import PHYSICS, require_fits
 from .ops.operator import OperatorFactory
 from .solve.amg import AMGPreconditioner
@@ -201,9 +208,9 @@ class ElasticityProblem:
             self.model = get_model(config.problem)
             self.phys = Physics(nu=config.nu, E=config.E * config.pascal)
             # smoother physics for the diagonals (-nu_smoother, matops.c:215-232)
-            diag_phys = (Physics(nu=config.nu_smoother,
-                                 E=config.E * config.pascal)
-                         if config.nu_smoother else self.phys)
+            self._diag_phys = (Physics(nu=config.nu_smoother,
+                                       E=config.E * config.pascal)
+                               if config.nu_smoother else self.phys)
 
             # --- boundary conditions --------------------------------------
             self.bcs = BoundaryConditions(num_nodes=fes.num_nodes)
@@ -226,6 +233,7 @@ class ElasticityProblem:
             self.bc_mask = torch.as_tensor(
                 np.ascontiguousarray(self.bcs.mask().T), device=self.device)
             self._coords = fes.coords
+            self._bc_vals = {}          # load -> bc_values(load)
 
             # --- forcing (zero at constrained DOFs: not solved for) -------
             F = assemble_forcing(self.factory, self.qdata, config.forcing,
@@ -252,9 +260,6 @@ class ElasticityProblem:
                     pwp, self.phys)
                 self._jac_p = [self.pfactory.make_jacobian_structured(
                     pwp, self.phys, level=l) for l in range(nlev)]
-                self._diag_p = [self.pfactory.make_diagonal(
-                    self.model.pressure_jacobian_qf, diag_phys, level=l)
-                    for l in range(nlev)]
             self._energy_fn = self.factory.make_energy(self.model.energy_qf,
                                                        self.phys)
             # native-quadrature preconditioner levels (all but the fine one)
@@ -266,10 +271,17 @@ class ElasticityProblem:
                 for l in nat]
             self._qdata_nat = [self.factory.compute_qdata_native(l)
                                for l in nat]
-            self._diag_fns = [
-                self.factory.make_diagonal(self.model.jacobian_qf, diag_phys,
-                                           level=l, native=self._nat_level(l))
+            # each level's diagonal weights at its rule (the pressure
+            # part's too): its element diagonals come from the pointwise
+            # tangent at that rule (`_tangent`)
+            self._diag_w = [
+                (diagonal_weights(self._level_basis(l)),
+                 diagonal_weights(self.pfactory.levels[l].basis)
+                 if self.composite else None)
                 for l in range(nlev)]
+            # the tangents of the preconditioner build in progress, by
+            # rule (`_tangent_scope`); None outside a build
+            self._tangents = None
             self._use_mg = config.multigrid != "none" and nlev > 1
             if self._use_mg:
                 self._level_masks = [self._level_mask(s) for s in self.spaces]
@@ -293,17 +305,9 @@ class ElasticityProblem:
         self._diagnostic = None     # (apply, qd_coll, mult), built at first use
 
     def _setup_amg(self):
-        """Analytic p = 1 element matrices (at the native level-0 quadrature
-        when native levels are on), the fixed-pattern CSR assembler of the
-        p = 1 space, and the AMG over them (level 0 matrix-free)."""
-        lvl0 = self.factory.levels[0]
-        basis0 = lvl0.nat_basis if self._nat_level(0) else lvl0.basis
-        self._em_mu = make_element_matrices(self.model.jacobian_qf, self.phys,
-                                            basis0, self.dtype)
-        if self.composite:
-            self._em_p = make_element_matrices(
-                self.model.pressure_jacobian_qf, self.phys,
-                self.pfactory.levels[0].basis, self.dtype)
+        """The fixed-pattern CSR assembler of the p = 1 space and the AMG
+        over it (level 0 matrix-free); its values come from level 0's
+        pointwise tangent (p1_values)."""
         s0 = self.spaces[0]
         self._assembler0 = CSRAssembler(
             s0.conn, s0.num_nodes, self._level_mask(s0).cpu().numpy(),
@@ -335,9 +339,16 @@ class ElasticityProblem:
 
     # ------------------------------------------------------------------
     def bc_values(self, load_increment: float) -> torch.Tensor:
-        v = self.bcs.values(self._coords, load_increment)
-        return torch.as_tensor(np.ascontiguousarray(v.T), dtype=self.dtype,
-                               device=self.device)       # (3, nnodes)
+        """(3, nnodes) boundary values at a load, computed once a load and
+        kept (they depend on nothing else); no caller changes them in
+        place."""
+        v = self._bc_vals.get(load_increment)
+        if v is None:
+            v = self._bc_vals[load_increment] = torch.as_tensor(
+                np.ascontiguousarray(
+                    self.bcs.values(self._coords, load_increment).T),
+                dtype=self.dtype, device=self.device)
+        return v
 
     def insert_bc(self, u: torch.Tensor, bc_vals: torch.Tensor) -> torch.Tensor:
         """DMPlexInsertBoundaryValues analog (matops.c:70-73)."""
@@ -358,6 +369,55 @@ class ElasticityProblem:
 
     def _nat_level(self, l: int) -> bool:
         return self._use_native_levels and l < len(self.spaces) - 1
+
+    def _level_basis(self, l: int):
+        """Level l's basis at its rule: its own Gauss rule on a native
+        level, else the fine one."""
+        lvl = self.factory.levels[l]
+        return lvl.nat_basis if self._nat_level(l) else lvl.basis
+
+    @contextlib.contextmanager
+    def _tangent_scope(self):
+        """One preconditioner build: the pointwise tangents made inside it
+        are kept by rule until the outermost scope ends, so each rule's is
+        made once a Jacobian; a nested scope shares the open one."""
+        if self._tangents is not None:
+            yield
+            return
+        self._tangents = {}
+        try:
+            yield
+        finally:
+            self._tangents = None
+
+    def _tangent(self, l, stash, stash_nats, phys=None) -> torch.Tensor:
+        """The mu part's pointwise tangent (ops/assembly.pointwise_tangent)
+        at level l's rule, its native one or the fine one; l None: the
+        pressure part's, at its Q = 1 + qextra rule. Made at its first use in
+        a build (span pc/tangent) and kept to the build's end
+        (_tangent_scope); outside a build made and dropped."""
+        phys = self.phys if phys is None else phys
+        nat = l is not None and self._nat_level(l)
+        # -nu_smoother's diagonals take their own physics
+        key = ("p" if l is None else l if nat else "fine", phys is self.phys)
+        cache = self._tangents
+        K = None if cache is None else cache.get(key)
+        if K is None:
+            if l is None:
+                qf, qdata, st = (self.model.pressure_jacobian_qf,
+                                 self.qdata_p, stash[1])
+            elif nat:
+                qf, qdata = self.model.jacobian_qf, self._qdata_nat[l]
+                st = (stash_nats[l] if stash_nats is not None else
+                      self.factory.stash_to_native(self._mu(stash), l))
+            else:
+                qf, qdata, st = (self.model.jacobian_qf, self.qdata,
+                                 self._mu(stash))
+            with span("pc/tangent"):
+                K = pointwise_tangent(qf, phys, qdata, st)
+            if cache is not None:
+                cache[key] = K
+        return K
 
     def _mu(self, stash):
         """The full-quadrature stash (the mu part's of a composite pair)."""
@@ -423,14 +483,16 @@ class ElasticityProblem:
         return levels, stash_nats
 
     def level_diag(self, l: int, stash, stash_nats) -> torch.Tensor:
-        """Assembled diagonal of level l's operator (unmasked), the
-        pressure term's added for a composite model."""
-        if self._nat_level(l):
-            d = self._diag_fns[l](self._qdata_nat[l], stash_nats[l])
-        else:
-            d = self._diag_fns[l](self.qdata, self._mu(stash))
+        """Assembled diagonal of level l's operator (unmasked): the element
+        diagonals of its rule's tangent, owner-summed, the pressure term's
+        added for a composite model."""
+        restr = self.factory.levels[l].restr
+        w, w_p = self._diag_w[l]
+        d = restr.scatter_add(element_diagonal_of(
+            self._tangent(l, stash, stash_nats, self._diag_phys), w))
         if self.composite:
-            d = d + self._diag_p[l](self.qdata_p, stash[1])
+            d = d + restr.scatter_add(element_diagonal_of(
+                self._tangent(None, stash, stash_nats, self._diag_phys), w_p))
         return d
 
     def mg_setup(self, stash, levels, stash_nats):
@@ -438,16 +500,17 @@ class ElasticityProblem:
         KSPChebyshevEstEig analog (elasticity.c:539-545), run once per
         Jacobian refresh, never inside CG."""
         diag_invs, bounds = [], []
-        for l, lvl in enumerate(levels):
-            with span(f"pc/mg/p{lvl.degree}/diag"):
-                d = torch.where(lvl.mask, 1.0,
-                                self.level_diag(l, stash, stash_nats))
-                dinv = 1.0 / d
-            diag_invs.append(dinv)
-            with span(f"pc/mg/p{lvl.degree}/eig"):
-                bounds.append(estimate_extreme_eigs(
-                    lambda v, lvl=lvl: lvl.apply(v, stash), dinv, d.shape,
-                    d.dtype))
+        with self._tangent_scope():
+            for l, lvl in enumerate(levels):
+                with span(f"pc/mg/p{lvl.degree}/diag"):
+                    d = torch.where(lvl.mask, 1.0,
+                                    self.level_diag(l, stash, stash_nats))
+                    dinv = 1.0 / d
+                diag_invs.append(dinv)
+                with span(f"pc/mg/p{lvl.degree}/eig"):
+                    bounds.append(estimate_extreme_eigs(
+                        lambda v, lvl=lvl: lvl.apply(v, stash), dinv,
+                        d.shape, d.dtype))
         return diag_invs, bounds
 
     def _amg_apply(self, b, data, top_mv):
@@ -458,17 +521,16 @@ class ElasticityProblem:
 
     def p1_values(self, stash, stash_nats=None) -> torch.Tensor:
         """(nnz,) float64 values of the assembled p = 1 matrix (before its
-        BC masks), on the device: element matrices in the solve dtype (the
-        mu part at the native level-0 quadrature when native levels are on,
-        plus the pressure part), then the fixed-order slot reduction."""
-        if self._nat_level(0):
-            sn = (stash_nats[0] if stash_nats is not None else
-                  self.factory.stash_to_native(self._mu(stash), 0))
-            em = self._em_mu(self._qdata_nat[0], sn)
-        else:
-            em = self._em_mu(self.qdata, self._mu(stash))
+        BC masks), on the device: element matrices in the solve dtype from
+        level 0's tangent (the mu part at the native level-0 quadrature
+        when native levels are on, plus the pressure part), then the
+        fixed-order slot reduction."""
+        em = element_matrices_of(self._tangent(0, stash, stash_nats),
+                                 self._level_basis(0).grad)
         if self.composite:
-            em = em + self._em_p(self.qdata_p, stash[1])
+            em = em + element_matrices_of(
+                self._tangent(None, stash, stash_nats),
+                self.pfactory.levels[0].basis.grad)
         return self._assembler0.assemble_values(em).to(torch.float64)
 
     def refresh_amg(self, stash, stash_nats=None):
@@ -544,13 +606,15 @@ class ElasticityProblem:
                     levels, stash_nats = self.build_mg_levels(stash)
             if self._pc_cache is None or (refresh and self.model.nonlinear):
                 count("pc.builds")
-                if self._use_amg:
-                    self.refresh_amg(stash, stash_nats)
-                if self._use_mg:
-                    self._pc_cache = self.mg_setup(stash, levels, stash_nats)
-                else:       # Jacobi; PCGAMG needs only the AMG data
-                    self._pc_cache = (() if self._use_amg
-                                      else self._jacobi_setup(stash))
+                with self._tangent_scope():
+                    if self._use_amg:
+                        self.refresh_amg(stash, stash_nats)
+                    if self._use_mg:
+                        self._pc_cache = self.mg_setup(stash, levels,
+                                                       stash_nats)
+                    else:   # Jacobi; PCGAMG needs only the AMG data
+                        self._pc_cache = (() if self._use_amg
+                                          else self._jacobi_setup(stash))
             sync(self.device)
         if self._use_mg:
             return self.linear_solve_mg(G, stash, levels, self._pc_cache, rtol)

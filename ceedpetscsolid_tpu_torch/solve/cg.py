@@ -134,16 +134,18 @@ def chebyshev(
     linear operation in b, safe inside an outer CG preconditioner.
     Standard three-term recurrence (Saad, Iterative Methods, alg. 12.1).
     The bounds are host floats: no device sync inside the recurrence.
+    From a zero guess (x0 None) the first residual is b itself, since the
+    operators smoothed here are linear (A(0) = 0): iters - 1 applications
+    of A, not iters.
     """
-    x = torch.zeros_like(b) if x0 is None else x0
     theta = 0.5 * (lam_max + lam_min)
     delta = 0.5 * (lam_max - lam_min)
     sigma1 = theta / delta
     rho = 1.0 / sigma1
 
-    r = b - A(x)
+    r = b if x0 is None else b - A(x0)
     d = (diag_inv * r) / theta
-    x = x + d
+    x = d if x0 is None else x0 + d
     for _ in range(iters - 1):
         r = b - A(x)
         rho_new = 1.0 / (2.0 * sigma1 - rho)

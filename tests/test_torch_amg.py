@@ -21,7 +21,9 @@ from ceedpetscsolid_tpu.solve.amg import AMGPreconditioner as JAMG
 from ceedpetscsolid_tpu_torch import interop
 from ceedpetscsolid_tpu_torch.mesh.fespace import build_fespace as tbuild
 from ceedpetscsolid_tpu_torch.models import get_model as tget_model
-from ceedpetscsolid_tpu_torch.ops.assembly import CSRAssembler, make_element_matrices
+from ceedpetscsolid_tpu_torch.ops.assembly import (CSRAssembler,
+                                                   element_matrices_of,
+                                                   pointwise_tangent)
 from ceedpetscsolid_tpu_torch.ops.operator import OperatorFactory as TFactory
 from ceedpetscsolid_tpu_torch.problem import Config, ElasticityProblem
 from ceedpetscsolid_tpu_torch.solve.amg import AMGPreconditioner
@@ -57,8 +59,8 @@ def _p1_pair(name, kind, n, seed=3):
     tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3, device="cpu")
     tst = None if jst is None else interop.stash_from_jax(
         jst, tf.nelem, tf.Q3, device="cpu")
-    tA = make_element_matrices(tmod.jacobian_qf, TPHYS, tf.basis,
-                               torch.float64)(tq, tst)
+    tA = element_matrices_of(pointwise_tangent(tmod.jacobian_qf, TPHYS, tq,
+                                               tst), tf.basis.grad)
     s = tf.space
     mask = np.zeros((3, s.num_nodes), bool)
     mask[:, s.all_boundary_nodes()] = True
@@ -143,9 +145,9 @@ def _assembled(prob):
     s0 = prob.spaces[0]
     asm = CSRAssembler(s0.conn, s0.num_nodes, prob.bc_mask.numpy(),
                        device="cpu")
-    em = make_element_matrices(prob.model.jacobian_qf, prob.phys,
-                               prob.factory.levels[0].basis, prob.dtype)
-    return asm.assemble(em(prob.qdata, None))
+    K = pointwise_tangent(prob.model.jacobian_qf, prob.phys, prob.qdata, None)
+    return asm.assemble(element_matrices_of(K,
+                                            prob.factory.levels[0].basis.grad))
 
 
 def test_assembled_matches_matrix_free():

@@ -15,12 +15,12 @@ import pytest
 import torch
 
 from ceedpetscsolid_tpu_torch import native
-from ceedpetscsolid_tpu_torch.ops.assembly import (element_matrices_of,
-                                                   make_element_matrices,
+from ceedpetscsolid_tpu_torch import problem as tproblem
+from ceedpetscsolid_tpu_torch.models.base import Mat3
+from ceedpetscsolid_tpu_torch.ops.assembly import (diagonal_weights,
+                                                   element_diagonal_of,
+                                                   element_matrices_of,
                                                    pointwise_tangent)
-from ceedpetscsolid_tpu_torch.ops.operator import (diagonal_weights,
-                                                   element_diagonal,
-                                                   element_diagonal_of)
 from ceedpetscsolid_tpu_torch.parallel import launch, tasks
 from ceedpetscsolid_tpu_torch.problem import Config, ElasticityProblem
 
@@ -33,9 +33,9 @@ HYPERFS = dict(problem="hyperFS", degree=2, nu=0.3, E=1.0, test_mode=True,
                level_quadrature="fine")
 # the request's spans that the serial solve's records carry too
 SERIAL_SPANS = {"solve", "newton/step", "newton/residual", "pc",
-                "pc/mg/p1/diag", "pc/mg/p2/diag", "pc/mg/p1/eig",
-                "pc/mg/p2/eig", "pc/amg/elem_mats", "cg", "cg/iter",
-                "cg/wait"}
+                "pc/tangent", "pc/mg/p1/diag", "pc/mg/p2/diag",
+                "pc/mg/p1/eig", "pc/mg/p2/eig", "pc/amg/elem_mats", "cg",
+                "cg/iter", "cg/wait"}
 DIST_SPANS = {f"dist/{k}/{p}" for k in ("all_to_all", "all_reduce",
                                         "all_gather")
               for p in ("issue", "wait")}
@@ -215,31 +215,162 @@ def test_distributed_solve_is_a_request_and_matches_serial(tmp_path):
     assert st["refresh_amg: native setup"] == st["refresh_amg: d2h"] == 0
 
 
-@pytest.mark.parametrize("problem, dtype", [
-    ("hyperFS", torch.float64), ("hyperFS", torch.float32),
-    ("hyperFSIncomp", torch.float64)])
-def test_pointwise_tangent_matches_nine_calls(problem, dtype):
-    """The distributed driver's pointwise Jacobian, one qfunction call over
-    the nine unit gradients, gives every level's element diagonals and the
-    element matrices of the nine-call path bit for bit, for each operator
-    of a composite model (every level at the fine quadrature)."""
-    prob = ElasticityProblem(Config(**dict(HYPERFS, problem=problem,
-                                           degree=3, box_faces=(2, 2, 3)),
-                                    dtype=dtype, device="cpu"))
-    parts = [(prob.model.jacobian_qf, prob.qdata, prob.factory)]
+# the oracle: the element diagonals and element matrices as nine calls of
+# the qfunction make them, one a unit gradient
+def _nine_call_diagonal(qf, phys, basis, qdata, stash):
+    """(3, nelem, P3) element diagonals: K's (c, :, c, :) slices from nine
+    applications of qf."""
+    BB = diagonal_weights(basis)
+    nelem, Q3 = qdata.shape[1], qdata.shape[2]
+    st = None if stash is None else Mat3(stash.unbind(0))
+    diag_e = torch.zeros((3, nelem, basis.P3), dtype=qdata.dtype)
+    du = torch.zeros((3, 3, nelem, Q3), dtype=qdata.dtype)
+    for c2 in range(3):
+        for d2 in range(3):
+            du[c2, d2] = 1.0
+            Krow = qf(du, qdata, st, phys)[c2]
+            du[c2, d2] = 0.0
+            diag_e[c2] += torch.einsum("qpa,aeq->ep", BB[..., d2], Krow)
+    return diag_e
+
+
+def _nine_call_matrices(qf, phys, basis, qdata, stash):
+    """(nelem, 3 P3, 3 P3) element matrices from K stacked from nine
+    applications of qf."""
+    nelem, Q3 = qdata.shape[1], qdata.shape[2]
+    st = None if stash is None else Mat3(stash.unbind(0))
+    cols = []
+    for c2 in range(3):
+        row = []
+        for d2 in range(3):
+            du = torch.zeros((3, 3, nelem, Q3), dtype=qdata.dtype)
+            du[c2, d2] = 1.0
+            row.append(qf(du, qdata, st, phys))
+        cols.append(torch.stack(row, dim=0))
+    return element_matrices_of(torch.stack(cols, dim=0), basis.grad)
+
+
+def _oracle_rules(prob, l, stash, stash_nats):
+    """[(qf, qdata, stash, basis, restr)] of level l's operator parts at
+    the problem's rules, the pressure part last."""
+    lvl = prob.factory.levels[l]
+    if prob._nat_level(l):
+        sn = (stash_nats[l] if stash_nats is not None else
+              prob.factory.stash_to_native(prob._mu(stash), l))
+        parts = [(prob.model.jacobian_qf, prob._qdata_nat[l], sn,
+                  lvl.nat_basis)]
+    else:
+        parts = [(prob.model.jacobian_qf, prob.qdata, prob._mu(stash),
+                  lvl.basis)]
     if prob.composite:
         parts.append((prob.model.pressure_jacobian_qf, prob.qdata_p,
-                      prob.pfactory))
+                      stash[1], prob.pfactory.levels[l].basis))
+    return parts
+
+
+def _oracle_level_diag(prob, l, stash, stash_nats):
+    """ElasticityProblem.level_diag from the nine-call element diagonals."""
+    restr = prob.factory.levels[l].restr
+    d = None
+    for qf, qd, st, b in _oracle_rules(prob, l, stash, stash_nats):
+        dp = restr.scatter_add(
+            _nine_call_diagonal(qf, prob._diag_phys, b, qd, st))
+        d = dp if d is None else d + dp
+    return d
+
+
+def _oracle_p1_values(prob, stash, stash_nats=None):
+    """ElasticityProblem.p1_values from the nine-call element matrices."""
+    em = None
+    for qf, qd, st, b in _oracle_rules(prob, 0, stash, stash_nats):
+        e = _nine_call_matrices(qf, prob.phys, b, qd, st)
+        em = e if em is None else em + e
+    return prob._assembler0.assemble_values(em).to(torch.float64)
+
+
+@pytest.mark.parametrize("level_quadrature", ["native", "fine"])
+@pytest.mark.parametrize("problem, dtype", [
+    ("hyperFS", torch.float64), ("hyperFS", torch.float32),
+    ("hyperFSIncomp", torch.float64), ("hyperFSIncomp", torch.float32)])
+def test_pointwise_tangent_matches_nine_calls(problem, dtype,
+                                              level_quadrature):
+    """The pointwise Jacobian, one qfunction call over the nine unit
+    gradients, gives every element diagonal and the element matrices of
+    the nine-call path bit for bit: at every rule either driver uses (the
+    fine rule with every level's basis, as the distributed driver
+    integrates, and each native level rule), for each operator of a
+    composite model; and the serial problem's level diagonals and p = 1
+    values equal the nine-call ones."""
+    prob = ElasticityProblem(Config(**dict(
+        HYPERFS, problem=problem, degree=4, box_faces=(2, 2, 3),
+        level_quadrature=level_quadrature), dtype=dtype, device="cpu"))
+    nlev = len(prob.spaces)
+    assert prob._use_native_levels == (level_quadrature == "native")
     gen = torch.Generator().manual_seed(5)
-    for qf, qdata, factory in parts:
-        stash = 0.05 * torch.randn((9, *qdata.shape[1:]), generator=gen,
-                                   dtype=dtype)
-        K = pointwise_tangent(qf, prob.phys, qdata, stash)
-        for lv in factory.levels:
-            b = lv.basis
-            assert torch.equal(element_diagonal_of(K, diagonal_weights(b)),
-                               element_diagonal(qf, prob.phys, b)(qdata,
-                                                                  stash))
-            assert torch.equal(element_matrices_of(K, b.grad),
-                               make_element_matrices(qf, prob.phys, b,
-                                                     dtype)(qdata, stash))
+
+    def stash_at(qdata):
+        return 0.05 * torch.randn((9, *qdata.shape[1:]), generator=gen,
+                                  dtype=dtype)
+
+    mu = stash_at(prob.qdata)
+    nats = [prob.factory.stash_to_native(mu, l) if prob._nat_level(l)
+            else None for l in range(nlev)]
+    rules = [(prob.model.jacobian_qf, prob.qdata, mu,
+              [lv.basis for lv in prob.factory.levels])]
+    rules += [(prob.model.jacobian_qf, prob._qdata_nat[l], nats[l],
+               [prob.factory.levels[l].nat_basis])
+              for l in range(nlev) if prob._nat_level(l)]
+    stash = mu
+    if prob.composite:
+        stash = (mu, stash_at(prob.qdata_p))
+        rules.append((prob.model.pressure_jacobian_qf, prob.qdata_p,
+                      stash[1], [lv.basis for lv in prob.pfactory.levels]))
+    assert len(rules) == 1 + (nlev - 1) * prob._use_native_levels + \
+        prob.composite
+    for qf, qdata, st, bases in rules:
+        K = pointwise_tangent(qf, prob.phys, qdata, st)
+        for b in bases:
+            assert torch.equal(
+                element_diagonal_of(K, diagonal_weights(b)),
+                _nine_call_diagonal(qf, prob.phys, b, qdata, st))
+            assert torch.equal(
+                element_matrices_of(K, b.grad),
+                _nine_call_matrices(qf, prob.phys, b, qdata, st))
+    for l in range(nlev):
+        assert torch.equal(prob.level_diag(l, stash, nats),
+                           _oracle_level_diag(prob, l, stash, nats))
+    assert torch.equal(prob.p1_values(stash),
+                       _oracle_p1_values(prob, stash))
+
+
+def test_serial_solve_matches_nine_call_oracle(monkeypatch):
+    """A hyperFS p-MG [1, 2, 4] clamp solve in float64 with native levels:
+    SNES, KSP and u equal those of the same solve fed the nine-call
+    oracle's level diagonals and p = 1 values; the tangent path makes one
+    pointwise tangent a rule (three) a preconditioner build."""
+    cfg = Config(problem="hyperFS", degree=4, forcing="none",
+                 box_faces=(2, 2, 2), bc_clamp=(6, 5),
+                 bc_clamp_translate={5: (0.0, 0.0, 0.05)}, num_increments=2,
+                 device="cpu")
+    made = [0]
+
+    def counted(*args):
+        made[0] += 1
+        return pointwise_tangent(*args)
+
+    monkeypatch.setattr(tproblem, "pointwise_tangent", counted)
+    prob = ElasticityProblem(cfg)
+    got = prob.solve()
+    assert got.converged and made[0] == 3 * prob.pc_setups > 0
+
+    oracle = ElasticityProblem(cfg)
+    monkeypatch.setattr(oracle, "level_diag", lambda l, stash, nats:
+                        _oracle_level_diag(oracle, l, stash, nats))
+    monkeypatch.setattr(oracle, "p1_values", lambda stash, nats=None:
+                        _oracle_p1_values(oracle, stash, nats))
+    made[0] = 0
+    ref = oracle.solve()
+    assert made[0] == 0
+    assert (got.snes_iters, got.ksp_iters) == (ref.snes_iters,
+                                               ref.ksp_iters)
+    assert torch.equal(got.u, ref.u)

@@ -28,6 +28,9 @@ from ceedpetscsolid_tpu.solve.pmg import make_vcycle as jmake_vcycle
 from ceedpetscsolid_tpu_torch import interop
 from ceedpetscsolid_tpu_torch.mesh.fespace import build_fespace as tbuild
 from ceedpetscsolid_tpu_torch.models import hyper_fs as thfs
+from ceedpetscsolid_tpu_torch.ops.assembly import (diagonal_weights,
+                                                   element_diagonal_of,
+                                                   pointwise_tangent)
 from ceedpetscsolid_tpu_torch.ops.operator import OperatorFactory as TFactory
 from ceedpetscsolid_tpu_torch.problem import Config as TConfig
 from ceedpetscsolid_tpu_torch.problem import ElasticityProblem as TProblem
@@ -81,6 +84,34 @@ def test_chebyshev_matches_jax(with_x0):
     xt = tcg.chebyshev(tA, torch.as_tensor(b), torch.as_tensor(dinv), lo, hi,
                        7, x0=None if x0 is None else torch.as_tensor(x0))
     assert _rel(xt.numpy(), xj) <= 1e-12
+
+
+def test_chebyshev_from_zero_skips_the_zero_apply():
+    """From a zero guess the smoother starts at D^-1 b / theta: iters - 1
+    applications of A, and the result equals (torch.equal) the recurrence
+    that applies A to the zero vector first, here with a BC-masked
+    operator as the level operators are."""
+    A = torch.as_tensor(_spd(48, 4))
+    rng = np.random.default_rng(6)
+    mask = torch.as_tensor(rng.random((3, 16)) < 0.25)
+    b = torch.where(mask, 0.0, torch.as_tensor(rng.standard_normal((3, 16))))
+    dinv = torch.where(mask, 1.0, 1.0 / torch.diagonal(A).reshape(3, 16))
+    lo, hi = 0.3, 120.0 * float(dinv.max())
+    calls = [0]
+
+    def apply(v):
+        calls[0] += 1
+        Av = (A @ torch.where(mask, 0.0, v).reshape(-1)).reshape(3, 16)
+        return torch.where(mask, 0.0, Av)
+
+    for iters in (1, 3, 30):
+        calls[0] = 0
+        x = tcg.chebyshev(apply, b, dinv, lo, hi, iters)
+        assert calls[0] == iters - 1
+        ref = tcg.chebyshev(apply, b, dinv, lo, hi, iters,
+                            x0=torch.zeros_like(b))
+        assert calls[0] == 2 * iters - 1
+        assert torch.equal(x, ref)
 
 
 def test_estimate_extreme_eigs_matches_jax(monkeypatch):
@@ -148,6 +179,14 @@ def test_transfers_match_jax(kind, coarse):
     assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
 
 
+def _tangent_diag(tf, level, basis, qdata, stash):
+    """The port's level diagonal as ElasticityProblem builds it: the
+    element diagonals of the pointwise tangent at the rule, owner-summed."""
+    K = pointwise_tangent(thfs.jacobian_qf, TPHYS, qdata, stash)
+    return tf.levels[level].restr.scatter_add(
+        element_diagonal_of(K, diagonal_weights(basis)))
+
+
 @pytest.mark.parametrize("kind", ["box", "scrambled"])
 @pytest.mark.parametrize("level", [0, 1])
 def test_level_operators_match_jax(kind, level):
@@ -164,7 +203,7 @@ def test_level_operators_match_jax(kind, level):
         jnp.asarray(u), jq, jf.fine.srestr, jf.fine.sgrad)
     tq = interop.qdata_from_jax(jq, tf.nelem, tf.Q3, device="cpu")
     tst = interop.stash_from_jax(jst, tf.nelem, tf.Q3, device="cpu")
-    jl = jf.levels[level]
+    jl, tl = jf.levels[level], tf.levels[level]
 
     # native quadrature
     jqn = jf.compute_qdata_native(level)
@@ -182,8 +221,7 @@ def test_level_operators_match_jax(kind, level):
     assert _rel(tjv.numpy(), jjv) <= 1e-11
     jd = jf.make_diagonal(jhfs.jacobian_qf, JPHYS, level=level, native=True)(
         jqn, jstn, jl.restr)
-    td = tf.make_diagonal(thfs.jacobian_qf, TPHYS, level=level, native=True)(
-        tqn, tstn)
+    td = _tangent_diag(tf, level, tl.nat_basis, tqn, tstn)
     assert _rel(td.numpy(), jd) <= 1e-11
 
     # fine quadrature (P_l -> Q_fine)
@@ -195,7 +233,7 @@ def test_level_operators_match_jax(kind, level):
     assert _rel(tjv.numpy(), jjv) <= 1e-11
     jd = jf.make_diagonal(jhfs.jacobian_qf, JPHYS, level=level)(
         jq, jst, jl.restr)
-    td = tf.make_diagonal(thfs.jacobian_qf, TPHYS, level=level)(tq, tst)
+    td = _tangent_diag(tf, level, tl.basis, tq, tst)
     assert _rel(td.numpy(), jd) <= 1e-11
 
 

@@ -107,6 +107,36 @@ def test_jacobian_matches_jvp():
     assert float(torch.linalg.norm(Jv - jvp) / torch.linalg.norm(jvp)) < 1e-6
 
 
+def test_bc_values_once_a_load_and_unchanged(monkeypatch):
+    """bc_values evaluates the boundary conditions once a load and keeps
+    them: two clamp solves of two increments each evaluate them at 0.5 and
+    1.0 only; no caller changes a kept tensor, the mask or the forcing in
+    place; the answers carry the full load's values at constrained DOFs."""
+    prob = TProblem(TConfig(problem="hyperFS", degree=2, forcing="none",
+                            box_faces=(2, 2, 2), bc_clamp=(6, 5),
+                            bc_clamp_translate={5: (0.0, 0.0, 0.05)},
+                            num_increments=2, device="cpu"))
+    calls, real = [], prob.bcs.values
+
+    def values(coords, load):
+        calls.append(load)
+        return real(coords, load)
+
+    monkeypatch.setattr(prob.bcs, "values", values)
+    kept = {load: prob.bc_values(load) for load in (0.5, 1.0)}
+    before = {load: v.clone() for load, v in kept.items()}
+    mask, F = prob.bc_mask.clone(), prob.F.clone()
+    first, second = prob.solve(), prob.solve()
+    assert first.converged and second.converged
+    assert calls == [0.5, 1.0]
+    for load, v in kept.items():
+        assert prob.bc_values(load) is v
+        assert torch.equal(v, before[load])
+    assert torch.equal(prob.bc_mask, mask) and torch.equal(prob.F, F)
+    for info in (first, second):
+        assert torch.equal(info.u[mask], before[1.0][mask])
+
+
 def _l2(out):
     m = re.search(r"L2 Error: (\S+)", out)
     return float(m.group(1)) if m else None

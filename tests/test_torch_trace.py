@@ -24,7 +24,8 @@ from ceedpetscsolid_tpu_torch.utils import timing
 # Newton step builds the AMG natively, the later ones refresh it on the
 # device), and the spans only under the profiler
 ALWAYS = {"solve", "newton/step", "newton/residual", "newton/line_search",
-          "linear_solve", "pc", "pc/mg/levels", "pc/amg/elem_mats",
+          "linear_solve", "pc", "pc/mg/levels", "pc/tangent",
+          "pc/amg/elem_mats",
           "pc/amg/d2h", "pc/amg/csr", "pc/amg/native", "pc/amg/upload",
           "pc/amg/plan", "pc/amg/galerkin", "pc/amg/lam", "pc/amg/coarse",
           "cg", "cg/iter", "cg/wait"}
